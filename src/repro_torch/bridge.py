@@ -1,0 +1,48 @@
+"""Bring JAX-initialised weights into the port.
+
+``params_from_numpy`` takes the JAX parameter tree as numpy arrays (what
+``unbox(init_model(...))[0]`` gives after ``np.asarray`` on every leaf) and
+returns the port's parameter dict. Layer-stacked leaves such as
+``dec/attn/wq`` of shape (L, d, hq*hd) become layer ``l``'s ``attn/wq``.
+bf16 comes across through float32, which is exact in both directions.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+
+
+def _tensor(a, cfg: ModelConfig, device: torch.device) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype != np.float32:
+        arr = arr.astype(np.float32)   # bf16 (ml_dtypes) -> f32 is exact
+    return torch.tensor(arr).to(dtype=cfg.torch_dtype, device=device)
+
+
+def params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None) -> Dict:
+    """The port's parameters from the JAX dense-family tree."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    dev = resolve_device(device)
+    dec = tree["dec"]
+    p: Dict = {
+        "embed": _tensor(tree["embed"], cfg, dev),
+        "final_norm": _tensor(tree["final_norm"], cfg, dev),
+    }
+    if "unembed" in tree:
+        p["unembed"] = _tensor(tree["unembed"], cfg, dev)
+    layers = []
+    for l in range(cfg.n_layers):
+        layers.append({
+            "norm1": _tensor(dec["norm1"][l], cfg, dev),
+            "norm2": _tensor(dec["norm2"][l], cfg, dev),
+            "attn": {k: _tensor(v[l], cfg, dev) for k, v in dec["attn"].items()},
+            "mlp": {k: _tensor(v[l], cfg, dev) for k, v in dec["mlp"].items()},
+        })
+    p["layers"] = layers
+    return p

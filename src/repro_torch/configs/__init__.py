@@ -1,0 +1,25 @@
+"""Architecture registry: ``get_config("<arch-id>")``.
+
+Only the families ported so far are registered; other configs come with
+their families.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig  # noqa: F401
+from repro_torch.configs.shapes import alloc_cache, effective_cache_len  # noqa: F401
+
+_ARCH_MODULES: Dict[str, str] = {
+    "dcache-agent-150m": "dcache_agent_150m",
+}
+
+ALL_IDS: List[str] = list(_ARCH_MODULES)
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_ARCH_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
+    return mod.CONFIG

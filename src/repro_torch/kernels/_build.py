@@ -1,0 +1,153 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) as one library.
+
+Each source is compiled by its own ``nvcc`` process, all started together,
+for ``sm_90a``; the objects are linked into one shared library with a plain
+C interface and loaded with ``ctypes``. Nothing is built at import time: the
+first kernel launch (or ``load_library()``) builds into ``build/kernels/``
+at the repository root, keyed by a hash of the sources, so an unchanged
+tree reuses its library.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lineinfo"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+_F = ctypes.c_float
+
+# C signatures of the entry points in csrc/ (all return cudaError_t as int)
+SIGNATURES: Dict[str, List] = {
+    "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
+    "repro_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+    + [_L] * 8 + [_I, _I, _F, _I, _P],
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
+    + [_L] * 12 + [_I, _I, _I, _F, _I, _P],
+}
+
+# what the last build printed (ptxas register/shared-memory report) and took
+build_log: Dict[str, object] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels can only be built "
+                       "on a machine with the CUDA toolkit")
+
+
+def _sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.iterdir()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile every source in parallel and link them into one library."""
+    lib_path = BUILD_DIR / f"librepro_kernels_{_digest()}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, objs, failed = [], [], []
+        for src, obj, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            objs.append(str(obj))
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+        tmp_lib = Path(tmp) / lib_path.name
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", *objs, "-o",
+                               str(tmp_lib)], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"link failed:\n{link.stdout}{link.stderr}")
+        os.replace(tmp_lib, lib_path)
+    build_log["seconds"] = time.perf_counter() - t0
+    build_log["ptxas"] = "\n".join(logs)
+    return lib_path
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The built library with every entry point's ``argtypes`` set."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+# element-type codes of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def use_plain(name: str, *tensors: torch.Tensor) -> bool:
+    """True for CPU tensors (take the plain version), False for CUDA tensors
+    (launch the kernel); raises for mixed or other devices."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    return False
+
+
+def dtype_code(name: str, *tensors: torch.Tensor) -> int:
+    dts = {t.dtype for t in tensors}
+    if len(dts) != 1 or next(iter(dts)) not in DTYPE_CODES:
+        raise TypeError(f"{name}: needs one dtype of {list(DTYPE_CODES)}, got "
+                        f"{sorted(map(str, dts))}")
+    return DTYPE_CODES[dts.pop()]
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device, as the C entry points take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,84 @@
+"""Single-token decode attention: the Hopper kernel
+``csrc/decode_attention.cu`` and its plain version.
+
+Replaces the TPU kernel ``repro/kernels/decode_attention.py``
+(``decode_attention`` / ``_decode_kernel``). Bytes bound it on the H100:
+each K/V slot is read once and shared by the G query heads of its group. The
+kernel takes one block per (b, kv head), one warp per query head, and loops
+over the ring buffer inside the block; see the source for the design.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+HEAD_DIMS = (64,)  # the registry's head dims; each one is built and checked
+MAX_GROUP = 32
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           pos: torch.Tensor, *, window: Optional[int] = None,
+                           chunk: Optional[int] = None) -> torch.Tensor:
+    """q: (B,Hq,d); k/v: (B,Hkv,C,d) ring buffers; pos: (B,) -> (B,Hq,d)."""
+    B, Hq, d = q.shape
+    _, Hkv, C, _ = k.shape
+    group = Hq // Hkv
+    k = k.repeat_interleave(group, dim=1)
+    v = v.repeat_interleave(group, dim=1)
+    s = torch.einsum("bhd,bhcd->bhc", q.float(), k.float()) * (d ** -0.5)
+    j = torch.arange(C, device=q.device)[None, :]
+    p = pos[:, None].long()
+    pslot = p - torch.remainder(p - j, C)
+    ok = pslot >= 0
+    if window is not None:
+        ok &= (p - pslot) < window
+    if chunk is not None:
+        ok &= (torch.div(pslot, chunk, rounding_mode="floor")
+               == torch.div(p, chunk, rounding_mode="floor"))
+    s = torch.where(ok[:, None, :], s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhc,bhcd->bhd", w, v.float()).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: torch.Tensor, *, window: Optional[int] = None,
+                     chunk: Optional[int] = None) -> torch.Tensor:
+    """q: (B,Hq,d); k/v: (B,Hkv,C,d) ring buffers, any strides with a
+    contiguous last dimension; pos: (B,) int32. Token t lives in slot
+    t % C and the current token's K/V must already be at slot pos % C.
+    CPU tensors take the plain version, CUDA tensors the kernel."""
+    if _build.use_plain("decode_attention", q, k, v, pos):
+        return decode_attention_plain(q, k, v, pos, window=window, chunk=chunk)
+    code = _build.dtype_code("decode_attention", q, k, v)
+    B, Hq, d = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != d:
+        raise ValueError(f"decode_attention: bad k/v shapes {tuple(k.shape)}, "
+                         f"{tuple(v.shape)} for q {tuple(q.shape)}")
+    _, Hkv, C, _ = k.shape
+    if Hq % Hkv or Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"decode_attention: Hq={Hq} over Hkv={Hkv}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"decode_attention: head dim {d} not in {HEAD_DIMS}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("decode_attention: last dimension must be contiguous")
+    if pos.shape != (B,) or pos.dtype != torch.int32 or not pos.is_contiguous():
+        raise ValueError("decode_attention: pos must be contiguous (B,) int32")
+    out = torch.empty((B, Hq, d), dtype=q.dtype, device=q.device)
+    lib = _build.load_library()
+    err = lib.repro_decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        B, Hkv, C, Hq // Hkv, d,
+        q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        window or 0, chunk or 0, d ** -0.5, code, _build.stream_ptr(q))
+    _build.check(err, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

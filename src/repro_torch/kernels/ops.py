@@ -1,0 +1,28 @@
+"""Dispatch layer for the port's kernels (counterpart of ``repro.kernels.ops``).
+
+A tensor on the CPU takes the kernel's plain PyTorch version; a tensor on a
+CUDA device launches the hand-written Hopper kernel, or the wrapper raises.
+There is no fallback from the card to the plain version. Each wrapper counts
+its kernel launches in ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm
+
+KERNELS = (rmsnorm, flash_attention, decode_attention)
+
+__all__ = ["rmsnorm", "flash_attention", "decode_attention",
+           "launch_counts", "reset_launch_counts"]
+
+
+def launch_counts() -> Dict[str, int]:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

@@ -1,0 +1,65 @@
+"""Serving launcher: batched requests through the port's engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve            # full width, cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+
+Serves ``dcache-agent-150m`` with random weights from a
+``torch.Generator`` seeded with 0. ``--smoke`` selects the reduced config
+(vocab 512).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import ALL_IDS, get_config
+from repro_torch.models.model import init_model
+from repro_torch.serving.engine import ServingEngine
+
+PROMPTS = [
+    "Plot the xview1 images from 2022 around Newport Beach",
+    "Detect airplanes in this area",
+    "Show fair1m and xview1 imagery from 2022",
+    "Classify the land cover near Houston",
+    "How many ships were detected in Miami in 2021?",
+    "Render a heatmap of detections for Seattle",
+    "What does the Denver area look like?",
+    "Count the cloudy scenes in sentinel2-2020",
+]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="dcache-agent-150m", choices=ALL_IDS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-sized)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=512)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = dataclasses.replace(cfg.reduced(), vocab_size=512)
+    dev = resolve_device(args.device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_model(cfg, gen, dev)
+    eng = ServingEngine(cfg, params, max_batch=args.max_batch,
+                        max_len=args.max_len, device=dev)
+    reqs = [eng.submit(PROMPTS[i % len(PROMPTS)], max_new_tokens=args.max_new)
+            for i in range(args.requests)]
+    eng.run_until_done()
+    for r in reqs:
+        print(f"[{r.rid}] {eng.tok.decode(r.prompt_ids)!r} -> "
+              f"{eng.tok.decode(r.out_ids)!r}")
+    print("stats:", eng.stats())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,117 @@
+"""Self-attention for the dense family (``repro.models.attention``).
+
+Prefill runs through ``ops.flash_attention`` and decode through
+``ops.decode_attention``: on the card these are the hand-written Hopper
+kernels, on the CPU their plain versions. Both keep the softmax weights in
+fp32, where the JAX XLA path casts them to the model dtype before P.V; in
+bf16 the two therefore differ by about one bf16 rounding.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.common import init_param, rope
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.qkv_bias or cfg.qk_norm:
+        raise NotImplementedError("qkv_bias / qk_norm attention is not ported yet")
+    if cfg.kv_quant:
+        raise NotImplementedError("the int8 KV cache is not ported yet")
+    if cfg.is_encdec:
+        raise NotImplementedError("cross-attention is not ported yet")
+
+
+def init_attention(cfg: ModelConfig, generator: torch.Generator,
+                   device: torch.device) -> Dict[str, torch.Tensor]:
+    """One layer's projections, in the JAX (d_in, d_out) orientation."""
+    _check_supported(cfg)
+    hq, d, hd, kv = cfg.n_attn_heads, cfg.d_model, cfg.head_dim_, cfg.n_kv_heads
+    dt = cfg.torch_dtype
+    return {
+        "wq": init_param((d, hq * hd), generator, dt, device),
+        "wk": init_param((d, kv * hd), generator, dt, device),
+        "wv": init_param((d, kv * hd), generator, dt, device),
+        "wo": init_param((hq * hd, d), generator, dt, device,
+                         scale=1.0 / max(cfg.n_layers, 1) ** 0.5),
+    }
+
+
+def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor):
+    """Returns q (B,S,KV,G,hd), k,v (B,S,KV,hd); head h = kv*G + g."""
+    _check_supported(cfg)
+    hd, kvh = cfg.head_dim_, cfg.n_kv_heads
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    B, S = x.shape[:2]
+    g = q.shape[-1] // hd // kvh
+    return (q.view(B, S, kvh, g, hd), k.view(B, S, kvh, hd),
+            v.view(B, S, kvh, hd))
+
+
+def attend(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
+           return_kv: bool = False):
+    """Causal self-attention over the full sequence. x: (B,S,D) -> (B,S,D).
+
+    With ``return_kv`` also returns the roped flat K/V (B,S,KV*hd) for the
+    prefill cache."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim_
+    q, k, v = _project_qkv(p, cfg, x)
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    q = rope(q.reshape(B, S, -1, hd), pos, cfg.rope_theta)   # (B,S,Hq,hd)
+    k = rope(k, pos, cfg.rope_theta)                         # (B,S,KV,hd)
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True,
+                              window=cfg.sliding_window, chunk=cfg.attn_chunk)
+    out = out.transpose(1, 2).reshape(B, S, -1)
+    proj = out @ p["wo"]
+    if return_kv:
+        return proj, (k.reshape(B, S, -1), v.reshape(B, S, -1))
+    return proj
+
+
+def pack_ring(kv: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """Place a prefilled K/V sequence (B,S,F) into its ring-buffer slots
+    (token t -> slot t % C), keeping only the last ``cache_len`` tokens."""
+    B, S, F = kv.shape
+    C = cache_len
+    if S == C:
+        return kv
+    if S > C:
+        return torch.roll(kv[:, S - C:], S % C, dims=1)
+    pad = torch.zeros((B, C - S, F), dtype=kv.dtype, device=kv.device)
+    return torch.cat([kv, pad], dim=1)
+
+
+def decode_attend(p: Dict, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
+                  k_cache: torch.Tensor, v_cache: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token attention against the ring-buffer cache.
+
+    x: (B,1,D); pos: (B,) int32 tokens so far; k/v_cache: (B,C,KV*hd).
+    The new K/V is written into slot ``pos % C`` IN PLACE (the JAX version
+    returns updated copies); returns (out, k_cache, v_cache)."""
+    B = x.shape[0]
+    C = k_cache.shape[1]
+    hd, kvh = cfg.head_dim_, cfg.n_kv_heads
+    q, k_new, v_new = _project_qkv(p, cfg, x)
+    q = rope(q.reshape(B, 1, -1, hd), pos[:, None], cfg.rope_theta)  # (B,1,Hq,hd)
+    k_new = rope(k_new, pos[:, None], cfg.rope_theta)
+
+    slot = torch.remainder(pos.long(), C)
+    bidx = torch.arange(B, device=x.device)
+    k_cache[bidx, slot] = k_new[:, 0].reshape(B, -1)
+    v_cache[bidx, slot] = v_new[:, 0].reshape(B, -1)
+    # (B,C,KV*hd) viewed as the kernel's (B,KV,C,hd): strides, no copy
+    kc = k_cache.view(B, C, kvh, hd).transpose(1, 2)
+    vc = v_cache.view(B, C, kvh, hd).transpose(1, 2)
+    o = ops.decode_attention(q[:, 0], kc, vc, pos, window=cfg.sliding_window,
+                             chunk=cfg.attn_chunk)
+    out = o.reshape(B, 1, -1) @ p["wo"]
+    return out, k_cache, v_cache

@@ -1,0 +1,51 @@
+"""Parameter init and numerics shared by the model (``repro.models.common``)."""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+
+def init_param(shape, generator: torch.Generator, dtype: torch.dtype,
+               device: torch.device, scale: float = 1.0) -> torch.Tensor:
+    """Truncated normal in [-2, 2] times ``scale / sqrt(fan_in)``, drawn in
+    fp32 from ``generator`` (on its own device), then cast and moved.
+
+    fan_in is ``shape[-2]`` (the JAX (d_in, d_out) orientation) or
+    ``shape[-1]`` for a vector. The numbers differ from ``jax.random``'s;
+    tests that compare with JAX bring the JAX weights across instead.
+    """
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = scale / math.sqrt(max(fan_in, 1))
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t * std).to(dtype=dtype, device=device)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """fp32 normalise, cast to x's dtype, times the gain (through the kernel)."""
+    return ops.rmsnorm(x, scale, eps=eps)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, rotate-half layout. x: (..., S, H, D); positions:
+    (..., S) or (S,)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(0, half, dtype=torch.float32, device=x.device)
+                      / half)
+    ang = positions.float()[..., None] * freqs          # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                  # broadcast over heads
+    sin = torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def swiglu(x_gate: torch.Tensor, x_up: torch.Tensor) -> torch.Tensor:
+    """silu(gate) * up in the input dtype."""
+    return F.silu(x_gate) * x_up

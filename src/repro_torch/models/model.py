@@ -1,0 +1,145 @@
+"""The dense decoder and its serving steps (``repro.models.model``).
+
+Parameters are a plain dict: ``embed`` (padded_vocab, D), ``final_norm``
+(D,), optionally ``unembed`` (D, padded_vocab), and ``layers``, a list with
+one dict per layer (``norm1``, ``norm2``, ``attn`` and ``mlp`` weights). A
+Python loop over ``layers`` takes the place of ``lax.scan``.
+
+    init_model(cfg, generator, device)          -> params
+    forward(cfg, params, batch)                 -> final hidden states
+    prefill_step(cfg, params, batch, ...)       -> (cache, last-token logits)
+    decode_step(cfg, params, tokens, cache)     -> (logits, cache)
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import effective_cache_len
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp_moe
+from repro_torch.models.common import init_param, rms_norm
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.frontend != "none" or cfg.is_encdec:
+        raise NotImplementedError(
+            f"family {cfg.family!r} (frontend {cfg.frontend!r}) is not ported "
+            "yet; only the dense decoder is")
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator,
+               device=None) -> Dict:
+    """Random weights from ``generator``, on ``device`` (cuda by default)."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    D, dt = cfg.d_model, cfg.torch_dtype
+    p: Dict = {
+        "embed": init_param((cfg.padded_vocab, D), generator, dt, dev),
+        "final_norm": torch.ones((D,), dtype=dt, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = init_param((D, cfg.padded_vocab), generator, dt, dev)
+    layers = []
+    for _ in range(cfg.n_layers):
+        layers.append({
+            "norm1": torch.ones((D,), dtype=dt, device=dev),
+            "norm2": torch.ones((D,), dtype=dt, device=dev),
+            "attn": attn_mod.init_attention(cfg, generator, dev),
+            "mlp": mlp_moe.init_mlp(cfg, generator, dev),
+        })
+    p["layers"] = layers
+    return p
+
+
+def _embed_tokens(cfg: ModelConfig, p: Dict, batch: Dict) -> torch.Tensor:
+    return p["embed"][batch["tokens"].long()]
+
+
+def _unembed(cfg: ModelConfig, p: Dict, h: torch.Tensor) -> torch.Tensor:
+    """fp32 logits (the JAX einsum's preferred_element_type=f32), with the
+    padded vocab entries set to -1e30.
+
+    On the card a bf16 GEMM writes fp32 directly, so the (D, V) weight is
+    read once as it is; the CPU has no such GEMM and upcasts both sides."""
+    w = p["embed"].t() if cfg.tie_embeddings else p["unembed"]
+    if h.is_cuda and h.dtype == torch.bfloat16:
+        logits = torch.mm(h.reshape(-1, h.shape[-1]), w,
+                          out_dtype=torch.float32).view(*h.shape[:-1], -1)
+    else:
+        logits = h.float() @ w.float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e30
+    return logits
+
+
+def forward(cfg: ModelConfig, params: Dict, batch: Dict, *,
+            collect_cache: bool = False, cache_len: int = 0):
+    """Final hidden states (B,S,D) and, with ``collect_cache``, the
+    layer-stacked ring-buffer cache {"k", "v"} of (L,B,cache_len,KV*hd)."""
+    _check_family(cfg)
+    x = _embed_tokens(cfg, params, batch)
+    ks, vs = [], []
+    for lp in params["layers"]:
+        a_in = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        if collect_cache:
+            a_out, (kk, vv) = attn_mod.attend(lp["attn"], cfg, a_in, return_kv=True)
+            ks.append(attn_mod.pack_ring(kk, cache_len))
+            vs.append(attn_mod.pack_ring(vv, cache_len))
+        else:
+            a_out = attn_mod.attend(lp["attn"], cfg, a_in)
+        x = x + a_out
+        f_in = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = x + mlp_moe.mlp(lp["mlp"], cfg, f_in)
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None
+    return h, cache
+
+
+def prefill_step(cfg: ModelConfig, params: Dict, batch: Dict,
+                 max_len: Optional[int] = None,
+                 true_lens: Optional[torch.Tensor] = None):
+    """Run the prompt, return (cache, last-token logits (B,1,V) fp32).
+
+    ``true_lens`` (B,) supports right-padded prompts: logits are taken at
+    each row's true last token and decoding starts there; the padded ring
+    slots are masked at decode because their slot position exceeds pos."""
+    B, S = batch["tokens"].shape
+    C = effective_cache_len(cfg, max_len or S)
+    h, cache = forward(cfg, params, batch, collect_cache=True, cache_len=C)
+    dev = h.device
+    if true_lens is None:
+        pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+        logits = _unembed(cfg, params, h[:, -1:, :])
+    else:
+        true_lens = true_lens.to(dev)
+        pos = true_lens.to(torch.int32)
+        idx = torch.clamp(true_lens.long() - 1, 0, S - 1)
+        logits = _unembed(cfg, params,
+                          h[torch.arange(B, device=dev), idx][:, None, :])
+    cache["pos"] = pos
+    return cache, logits
+
+
+def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                cache: Dict):
+    """One decode step for the whole batch. tokens: (B,1).
+
+    The cache's K/V buffers are updated IN PLACE (the JAX version returns a
+    new cache); ``pos`` is replaced by pos + 1. Returns (logits, cache)."""
+    _check_family(cfg)
+    x = params["embed"][tokens.long()]
+    pos = cache["pos"]
+    for l, lp in enumerate(params["layers"]):
+        a_in = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        a_out, _, _ = attn_mod.decode_attend(lp["attn"], cfg, a_in, pos,
+                                             cache["k"][l], cache["v"][l])
+        x = x + a_out
+        f_in = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = x + mlp_moe.mlp(lp["mlp"], cfg, f_in)
+    cache["pos"] = pos + 1
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _unembed(cfg, params, h), cache

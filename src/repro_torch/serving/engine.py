@@ -1,0 +1,168 @@
+"""Continuous-batching serving engine (``repro.serving.engine``).
+
+A fixed decode batch of ``max_batch`` slots steps in lockstep (one
+``decode_step`` per engine step, empty slots included); requests are
+admitted into free slots by a single-row prefill (prompt right-padded to a
+power-of-two bucket, masked by construction, see ``prefill_step``) whose
+cache row is copied into the batch cache. Completed rows free their slot.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import alloc_cache
+from repro_torch.models.model import decode_step, prefill_step
+from repro_torch.serving.sampler import sample
+from repro_torch.serving.tokenizer import MIN_VOCAB, ByteTokenizer
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt_ids: List[int]
+    max_new_tokens: int
+    temperature: float = 0.0
+    out_ids: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    submitted_at: float = 0.0
+    first_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+
+
+def _bucket(n: int, cap: int) -> int:
+    b = 8
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
+class ServingEngine:
+    """Serves ``cfg`` with ``params`` on ``device`` (cuda unless asked for
+    the CPU; raises when there is no CUDA and no explicit CPU request)."""
+
+    def __init__(self, cfg: ModelConfig, params: Dict, *, max_batch: int = 4,
+                 max_len: int = 512, tokenizer: Optional[ByteTokenizer] = None,
+                 device=None):
+        if cfg.vocab_size < MIN_VOCAB:
+            raise ValueError("byte tokenizer needs vocab >= 258")
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params on {params['embed'].device}, engine on "
+                             f"{self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.tok = tokenizer or ByteTokenizer()
+        self.cache = alloc_cache(cfg, max_batch, max_len, self.device)
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        self.waiting: List[Request] = []
+        self.finished: List[Request] = []
+        self._rid = 0
+        self._gen = torch.Generator(device=self.device).manual_seed(0)
+        self.steps = 0
+        self.prefills = 0
+
+    # -- cache plumbing -------------------------------------------------------
+    def _install(self, slot: int, row_cache: Dict):
+        """Copy a B=1 prefill cache (built with this engine's max_len, so
+        its ring has the batch cache's length) into slot ``slot``."""
+        self.cache["pos"][slot] = row_cache["pos"][0]
+        for k in ("k", "v"):
+            self.cache[k][:, slot] = row_cache[k][:, 0]
+
+    # -- public API -----------------------------------------------------------
+    def submit(self, prompt: str, max_new_tokens: int = 32,
+               temperature: float = 0.0) -> Request:
+        ids = self.tok.encode(prompt)[- (self.max_len // 2):]
+        req = Request(rid=self._rid, prompt_ids=ids,
+                      max_new_tokens=max_new_tokens, temperature=temperature,
+                      submitted_at=time.perf_counter())
+        self._rid += 1
+        self.waiting.append(req)
+        return req
+
+    def _admit(self):
+        for slot in range(self.max_batch):
+            if self.slots[slot] is not None or not self.waiting:
+                continue
+            req = self.waiting.pop(0)
+            n = len(req.prompt_ids)
+            bucket = _bucket(n, self.max_len)
+            ids = req.prompt_ids + [0] * (bucket - n)
+            batch = {"tokens": torch.tensor([ids], dtype=torch.int32,
+                                            device=self.device)}
+            row_cache, logits = prefill_step(
+                self.cfg, self.params, batch, max_len=self.max_len,
+                true_lens=torch.tensor([n], dtype=torch.int32, device=self.device))
+            self.prefills += 1
+            self._install(slot, row_cache)
+            tok = sample(logits[:, -1].float(), self._gen,
+                         temperature=req.temperature)
+            req.out_ids.append(int(tok[0]))
+            req.first_token_at = time.perf_counter()
+            self.slots[slot] = req
+
+    def step(self) -> int:
+        """One engine step: admit waiting requests, decode all slots."""
+        self._admit()
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return 0
+        tokens = np.zeros((self.max_batch, 1), np.int32)
+        for i in active:
+            tokens[i, 0] = self.slots[i].out_ids[-1]
+        logits, self.cache = decode_step(
+            self.cfg, self.params, torch.from_numpy(tokens).to(self.device),
+            self.cache)
+        nxt = sample(logits[:, -1].float(), self._gen).cpu().numpy()
+        pos = self.cache["pos"].cpu().numpy()
+        self.steps += 1
+        for i in active:
+            req = self.slots[i]
+            tok = int(nxt[i])
+            req.out_ids.append(tok)
+            limit_hit = len(req.out_ids) >= req.max_new_tokens
+            pos_cap = int(pos[i]) >= self.max_len - 1
+            if tok == self.tok.eos_id or limit_hit or pos_cap:
+                req.done = True
+                req.finished_at = time.perf_counter()
+                self.finished.append(req)
+                self.slots[i] = None
+        return len(active)
+
+    def run_until_done(self, max_steps: int = 10_000):
+        while (self.waiting or any(s is not None for s in self.slots)) \
+                and max_steps > 0:
+            self.step()
+            max_steps -= 1
+
+    def generate_text(self, prompt: str, max_new_tokens: int = 32,
+                      temperature: float = 0.0) -> str:
+        req = self.submit(prompt, max_new_tokens, temperature)
+        self.run_until_done()
+        return self.tok.decode(req.out_ids)
+
+    # -- metrics ---------------------------------------------------------------
+    def stats(self) -> Dict[str, float]:
+        done = self.finished
+        if not done:
+            return {"finished": 0}
+        ttft = [r.first_token_at - r.submitted_at for r in done
+                if r.first_token_at]
+        lat = [r.finished_at - r.submitted_at for r in done if r.finished_at]
+        toks = sum(len(r.out_ids) for r in done)
+        wall = max(r.finished_at for r in done) - min(
+            r.submitted_at for r in done)
+        return {"finished": len(done),
+                "mean_ttft_s": float(np.mean(ttft)) if ttft else 0.0,
+                "mean_latency_s": float(np.mean(lat)) if lat else 0.0,
+                "tokens": toks,
+                "throughput_tok_s": toks / wall if wall > 0 else 0.0}
