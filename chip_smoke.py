@@ -8,17 +8,24 @@ Phases (any failure exits non-zero; nothing is caught):
      build time and ptxas report;
   2. hold each kernel against its plain PyTorch version on the card, in bf16
      (atol = rtol = 2e-2) and fp32 (1e-4, sums in another order), at the main
-     path's shapes and ragged ones; time kernel, plain version and the
-     library call (CUDA events, median of 50) at the main path's shapes;
-  3. serve dcache-agent-150m at full width in bf16 (random weights from a
-     seeded torch.Generator): ServingEngine(max_batch=4, max_len=512), 8
-     prompts x 32 new tokens, then one TorchLLM.complete; the launch counters
-     must equal the exact numbers the path implies; profile a decode step,
-     a prefill and the unembed (held against an fp32 product within 1e-3);
-  4. the same full-width weights cut to 2 layers, in fp32, on the CPU (plain
-     versions) and on the card (kernels): prefill + 8 greedy decode steps on
-     3 prompts; logits within 1e-3 and the same greedy tokens (or a top-2
-     gap within the tolerance where a token differs);
+     paths' shapes and ragged ones (the WKV kernel also with its state
+     updated in place); time kernel, plain version and the library call
+     (CUDA events, median of 50) at the main paths' shapes;
+  3. serve two models at full width in bf16, each with random weights from a
+     seeded torch.Generator, through ServingEngine(max_batch=4, max_len=512)
+     (8 prompts x 32 new tokens) and then one TorchLLM.complete:
+     dcache-agent-150m (dense: rmsnorm, prefill and decode attention) and
+     rwkv6-7b (ssm: rmsnorm and the WKV kernel). The launch counters are
+     reset before each path and must then equal the exact numbers the path
+     implies. Profile a decode step, a prefill and the unembed (held against
+     an fp32 product within 1e-3);
+  4. for each model, the full-width weights cut to 2 layers, in fp32, on the
+     CPU (plain versions) and on the card (kernels): prefill + 8 greedy
+     decode steps on 3 prompts; logits within 1e-3 and the same greedy tokens
+     (or a top-2 gap within the tolerance where a token differs). Dense
+     prompts are right-padded with true_lens; rwkv prompts are prefilled one
+     by one at their own length, since padding would enter the recurrent
+     state;
   5. print the card's name and power limit and the kernels' JSON line, then
      the result line.
 
@@ -29,6 +36,7 @@ prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -47,6 +55,7 @@ PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
+PROFILE_ITERS = 10              # calls per profiled step or prefill
 
 
 def log(*a):
@@ -97,6 +106,12 @@ def kernel_device_us(per_call, needle):
     return sum(t for k, t in per_call.items() if needle in k)
 
 
+def all_device_us(fn, iters=20):
+    """Device time per call of every kernel fn launches (a library call may
+    launch several), in us."""
+    return sum(device_profile(fn, iters)[0].values())
+
+
 def bound_ms(nbytes, flops, dtype):
     t_b = nbytes / PEAK_BYTES_S
     t_f = flops / PEAK_FLOPS[dtype]
@@ -132,7 +147,7 @@ def check_kernels(errs):
     B, Hq, Hkv, d = 4, 12, 4, 64
     for dtype in (torch.bfloat16, torch.float32):
         for rows in (1, 4, 257):
-            for dm in (64, 768):
+            for dm in (64, 768, 4096):
                 x = randn(gen, rows, dm, dtype=dtype)
                 g = randn(gen, dm, dtype=dtype)
                 compare("rmsnorm", f"rows={rows} d={dm}", ops.rmsnorm(x, g),
@@ -163,6 +178,49 @@ def check_kernels(errs):
                     compare("decode_attention", f"C={C} {pcase} {mask}",
                             ops.decode_attention(q, k, v, p, **kw),
                             decode_attention_plain(q, k, v, p, **kw), dtype, errs)
+    check_wkv(errs)
+
+
+def wkv_inputs(gen, B, S, H, hd, dtype):
+    """r/k/v (B,S,H,hd) in dtype (k a strided view of a (B,H,S,hd) buffer),
+    w fp32 in (0.8, 0.999), u (H,hd) in dtype."""
+    r = randn(gen, B, S, H, hd, dtype=dtype)
+    k = randn(gen, B, H, S, hd, dtype=dtype).transpose(1, 2)
+    v = randn(gen, B, S, H, hd, dtype=dtype)
+    w = 0.8 + 0.199 * torch.rand((B, S, H, hd), generator=gen, device="cuda")
+    u = randn(gen, H, hd, dtype=dtype)
+    return r, k, v, w, u
+
+
+def check_wkv(errs):
+    """The WKV kernel against wkv_plain: prefill shapes from a zero state,
+    the decode shape from a random state, into a new buffer and in place.
+    y is compared in its dtype's tolerance; the state is fp32 whatever the
+    inputs' dtype, so it is held to the fp32 tolerance."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rwkv_wkv import wkv_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    H, hd = 64, 64
+    for dtype in (torch.bfloat16, torch.float32):
+        for S in (1, 7, 48, 64, 130):
+            r, k, v, w, u = wkv_inputs(gen, 1, S, H, hd, dtype)
+            y, s = ops.wkv(r, k, v, w, u)
+            yp, sp = wkv_plain(r, k, v, w, u)
+            compare("wkv", f"B=1 S={S} y", y, yp, dtype, errs)
+            compare("wkv", f"B=1 S={S} state", s, sp, torch.float32, errs)
+        r, k, v, w, u = wkv_inputs(gen, 4, 1, H, hd, dtype)
+        s0 = torch.randn((4, H, hd, hd), generator=gen, device="cuda")
+        yp, sp = wkv_plain(r, k, v, w, u, s0)
+        y, s = ops.wkv(r, k, v, w, u, s0=s0)
+        compare("wkv", "B=4 S=1 s0 y", y, yp, dtype, errs)
+        compare("wkv", "B=4 S=1 s0 state", s, sp, torch.float32, errs)
+        state = s0.clone()
+        y, s = ops.wkv(r, k, v, w, u, s0=state, state_out=state)
+        assert s.data_ptr() == state.data_ptr()
+        compare("wkv", "B=4 S=1 s0 in place y", y, yp, dtype, errs)
+        compare("wkv", "B=4 S=1 s0 in place state", state, sp, torch.float32,
+                errs)
 
 
 def time_kernels():
@@ -172,6 +230,7 @@ def time_kernels():
     from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.rmsnorm import rmsnorm_plain
+    from repro_torch.kernels.rwkv_wkv import wkv_plain
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     dt, es = torch.bfloat16, 2
@@ -187,6 +246,7 @@ def time_kernels():
         ms=time_ms(lambda: ops.rmsnorm(x, g)),
         plain_ms=time_ms(lambda: rmsnorm_plain(x, g)),
         library_ms=time_ms(lambda: F.rms_norm(x, (768,), g, 1e-5)),
+        library_device_us=all_device_us(lambda: F.rms_norm(x, (768,), g, 1e-5)),
         device_us=kernel_device_us(device_profile(
             lambda: ops.rmsnorm(x, g), 20)[0], "rmsnorm_kernel"),
         bound_ms=b, bound_by=by)
@@ -211,6 +271,8 @@ def time_kernels():
         plain_ms=time_ms(lambda: decode_attention_plain(q, k, v, pos)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qq, kk, vv, attn_mask=mask, enable_gqa=True)),
+        library_device_us=all_device_us(lambda: F.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=mask, enable_gqa=True)),
         device_us=kernel_device_us(device_profile(
             lambda: ops.decode_attention(q, k, v, pos), 20)[0], "decode_kernel"),
         bound_ms=b, bound_by=by)
@@ -230,12 +292,58 @@ def time_kernels():
         plain_ms=time_ms(lambda: flash_attention_plain(q, k, v)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qc, kc2, vc2, is_causal=True, enable_gqa=True)),
+        library_device_us=all_device_us(lambda: F.scaled_dot_product_attention(
+            qc, kc2, vc2, is_causal=True, enable_gqa=True)),
         device_us=kernel_device_us(device_profile(
             lambda: ops.flash_attention(q, k, v), 20)[0], "flash_kernel"),
         bound_ms=b, bound_by=by)
+
+    # rmsnorm at the rwkv6-7b decode step's shapes: norm1/norm2 (4,1,4096)
+    # and the per-head ln_x norm, 4*64 rows of 64
+    for key, shp in (("rmsnorm_d4096", (4, 1, 4096)),
+                     ("rmsnorm_heads64", (4, 1, 64, 64))):
+        x = randn(gen, *shp, dtype=dt)
+        g = randn(gen, shp[-1], dtype=dt)
+        b, by = bound_ms((2 * x.numel() + g.numel()) * es, 4 * x.numel(),
+                         torch.float32)
+        rows[key] = dict(
+            shape=f"x {shp} bf16",
+            ms=time_ms(lambda: ops.rmsnorm(x, g)),
+            plain_ms=time_ms(lambda: rmsnorm_plain(x, g)),
+            library_ms=time_ms(lambda: F.rms_norm(x, (shp[-1],), g, 1e-5)),
+            library_device_us=all_device_us(
+                lambda: F.rms_norm(x, (shp[-1],), g, 1e-5)),
+            device_us=kernel_device_us(device_profile(
+                lambda: ops.rmsnorm(x, g), 20)[0], "rmsnorm_kernel"),
+            bound_ms=b, bound_by=by)
+
+    # WKV at the rwkv6-7b decode step (B=4, S=1, the cache's state updated
+    # in place) and at a prefill (B=1, S=48, zero state). No single PyTorch
+    # call computes this recurrence, so there is no library time.
+    H, hd = 64, 64
+    for key, B, S in (("wkv", 4, 1), ("wkv_prefill", 1, 48)):
+        r, k, v, w, u = wkv_inputs(gen, B, S, H, hd, dt)
+        r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
+        state = torch.randn((B, H, hd, hd), generator=gen, device="cuda") \
+            if S == 1 else None
+        n = B * S * H * hd
+        nb = 4 * n * es + 4 * n + H * hd * es \
+            + (2 if state is not None else 1) * B * H * hd * hd * 4
+        b, by = bound_ms(nb, 7 * n * hd, torch.float32)
+        run = lambda: ops.wkv(r, k, v, w, u, s0=state, state_out=state)  # noqa: E731
+        rows[key] = dict(
+            shape=f"r/k/v ({B},{S},{H},{hd}) bf16, w fp32, "
+                  + ("state in place" if state is not None else "zero state"),
+            ms=time_ms(run),
+            plain_ms=time_ms(lambda: wkv_plain(r, k, v, w, u, state)),
+            library_ms=None, library_device_us=None,
+            device_us=kernel_device_us(device_profile(run, 20)[0], "wkv_kernel"),
+            bound_ms=b, bound_by=by)
     for name, r in rows.items():
+        lib = "none" if r["library_ms"] is None else (
+            f"{r['library_ms']:.4f} ms (device {r['library_device_us']:.2f} us)")
         log(f"  time {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, device "
+            f"{r['plain_ms']:.4f} ms, library {lib}, device "
             f"(profiler) {r['device_us']:.2f} us, bound "
             f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
     return rows
@@ -246,7 +354,33 @@ def time_kernels():
 # ---------------------------------------------------------------------------
 
 
-def serve_full_width():
+def leaves(p):
+    """Every tensor of a parameter tree (dicts and lists)."""
+    if isinstance(p, dict):
+        for v in p.values():
+            yield from leaves(v)
+    elif isinstance(p, list):
+        for v in p:
+            yield from leaves(v)
+    else:
+        yield p
+
+
+def expected_launches(cfg, prefills, steps):
+    """Kernel launches the serving path implies: the dense decoder runs
+    rmsnorm twice a layer and once at the end, flash attention per layer at
+    each prefill and decode attention per layer at each step; rwkv6 runs
+    rmsnorm three times a layer (norm1, norm2, the per-head ln_x norm) and
+    once at the end, and the WKV kernel per layer at every prefill and step."""
+    L, n = cfg.n_layers, prefills + steps
+    if cfg.family == "ssm":
+        return {"rmsnorm": (3 * L + 1) * n, "flash_attention": 0,
+                "decode_attention": 0, "wkv": L * n}
+    return {"rmsnorm": (2 * L + 1) * n, "flash_attention": L * prefills,
+            "decode_attention": L * steps, "wkv": 0}
+
+
+def serve_full_width(arch):
     from repro_torch.agent import TorchLLM
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -254,16 +388,21 @@ def serve_full_width():
                                           prefill_step)
     from repro_torch.serving import ServingEngine
 
-    cfg = get_config("dcache-agent-150m")
-    L = cfg.n_layers
+    cfg = get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
     params = init_model(cfg, gen, "cuda")
-    log(f"  {cfg.name}: {cfg.param_count() / 1e6:.1f} M params, {cfg.dtype}, "
-        f"L={L} d={cfg.d_model} Hq={cfg.n_heads} Hkv={cfg.n_kv_heads}")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    m = dict(arch=arch, params=n_params, init_s=time.perf_counter() - t0)
+    log(f"  {cfg.name}: {n_params / 1e6:.1f} M params summed from the tensors "
+        f"({cfg.param_count() / 1e6:.1f} M by ModelConfig.param_count), "
+        f"{cfg.dtype}, L={cfg.n_layers} d={cfg.d_model}, family {cfg.family}; "
+        f"init {m['init_s']:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated")
     # warm-up (cuBLAS handles, allocator) on a throw-away engine
     ServingEngine(cfg, params, max_batch=4, max_len=512,
-                  device="cuda").generate_text(
-        PROMPTS[0], max_new_tokens=4)
+                  device="cuda").generate_text(PROMPTS[0], max_new_tokens=4)
     torch.cuda.synchronize()
 
     eng = ServingEngine(cfg, params, max_batch=4, max_len=512, device="cuda")
@@ -287,46 +426,59 @@ def serve_full_width():
     assert all(1 <= len(r.out_ids) <= 32 for r in reqs)
     assert all(0 <= t < cfg.vocab_size for r in eng.finished for t in r.out_ids)
     assert isinstance(text, str)
-    expected = {"rmsnorm": (2 * L + 1) * (eng.prefills + eng.steps),
-                "flash_attention": L * eng.prefills,
-                "decode_attention": L * eng.steps}
+    expected = expected_launches(cfg, eng.prefills, eng.steps)
     log(f"  prefills={eng.prefills} decode_steps={eng.steps} "
         f"launches={counts} expected={expected}")
     assert counts == expected, "launch counts differ from the main path's"
     gen_tokens = sum(len(r.out_ids) for r in reqs)
-    m = dict(tokens=gen_tokens, wall_s=wall, tok_s=gen_tokens / wall,
+    m.update(tokens=gen_tokens, wall_s=wall, tok_s=gen_tokens / wall,
              mean_ttft_ms=1e3 * stats["mean_ttft_s"],
              decode_step_ms=1e3 * statistics.median(decode_only),
-             decode_steps_timed=len(decode_only))
+             decode_steps_timed=len(decode_only), prefills=eng.prefills,
+             steps=eng.steps, launches=counts)
     log(f"  serving: {gen_tokens} tokens in {wall:.3f} s = {m['tok_s']:.1f} tok/s, "
         f"mean TTFT {m['mean_ttft_ms']:.2f} ms, decode step (median of "
         f"{len(decode_only)}) {m['decode_step_ms']:.3f} ms; TorchLLM -> {text!r}")
 
-    # where a step's time goes: device time by kernel and the busy share
+    # where a step's time goes: device time by kernel and the busy share.
+    # Dense prompts are padded to a bucket (64 here); rwkv prompts run at
+    # their exact length (48 here, about the length of PROMPTS).
     toks = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
-    prompt = torch.zeros((1, 64), dtype=torch.int32, device="cuda")
-    lens = torch.tensor([60], dtype=torch.int32, device="cuda")
+    if cfg.family == "ssm":
+        prompt = torch.zeros((1, 48), dtype=torch.int32, device="cuda")
+        pre_kw = {}
+    else:
+        prompt = torch.zeros((1, 64), dtype=torch.int32, device="cuda")
+        pre_kw = {"true_lens": torch.tensor([60], dtype=torch.int32, device="cuda")}
+    tag = arch.split("-")[0]
     for what, fn, table in (
             ("decode step (B=4)",
-             lambda: decode_step(cfg, params, toks, eng.cache), "profile_decode_step.txt"),
-            ("prefill (S=64)",
+             lambda: decode_step(cfg, params, toks, eng.cache),
+             f"profile_{tag}_decode_step.txt"),
+            (f"prefill (S={prompt.shape[1]})",
              lambda: prefill_step(cfg, params, {"tokens": prompt}, max_len=512,
-                                  true_lens=lens), "profile_prefill.txt")):
-        per_call, busy, wall_us = device_profile(fn, 10, table)
+                                  **pre_kw), f"profile_{tag}_prefill.txt")):
+        ops.reset_launch_counts()
+        per_call, busy, wall_us = device_profile(fn, PROFILE_ITERS, table)
+        # device_profile calls fn once to warm up, then PROFILE_ITERS times
+        launches = {k: v / (PROFILE_ITERS + 1)
+                    for k, v in ops.launch_counts().items() if v}
         dev_us = sum(per_call.values())
         top = sorted(per_call.items(), key=lambda kv: -kv[1])[:6]
         log(f"  profile {what}: host wall {wall_us / 1e3:.3f} ms/call, device "
-            f"{dev_us / 1e3:.3f} ms/call, device busy {100 * busy:.1f}%; top: "
+            f"{dev_us / 1e3:.3f} ms/call, device busy {100 * busy:.1f}%; "
+            f"kernel launches/call {launches}; top: "
             + "; ".join(f"{k[:48]} {t:.1f} us" for k, t in top))
         key = "decode" if what.startswith("decode") else "prefill"
         m[f"{key}_wall_ms"] = wall_us / 1e3
         m[f"{key}_device_ms"] = dev_us / 1e3
         m[f"{key}_busy"] = busy
+        m[f"{key}_top_us"] = dict(top)
 
     # the unembed at a decode step: the bf16 GEMM with fp32 output against
-    # an fp32 copy of the tied embedding (same accumulation, extra traffic)
+    # an fp32 copy of the weight (same accumulation, extra traffic)
     h = torch.randn((4, 1, cfg.d_model), generator=gen, device="cuda").to(cfg.torch_dtype)
-    w = params["embed"].t()
+    w = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
     V = cfg.vocab_size
     err = (_unembed(cfg, params, h)[..., :V]
            - (h.float() @ w.float())[..., :V]).abs().max().item()
@@ -346,32 +498,49 @@ def serve_full_width():
 # phase 4: CPU (plain versions) against the card (kernels), fp32
 # ---------------------------------------------------------------------------
 
-def cpu_vs_card(tol=1e-3):
+def tree_to(p, device):
+    if isinstance(p, dict):
+        return {k: tree_to(v, device) for k, v in p.items()}
+    if isinstance(p, list):
+        return [tree_to(v, device) for v in p]
+    return p.to(device)
+
+
+def prefill(cfg, params, ids, device):
+    """Prefill the prompts ``ids`` on ``device``: dense prompts right-padded
+    into one batch with true_lens; rwkv prompts one by one at their own
+    length, their caches then joined along the batch dimension."""
+    from repro_torch.models.model import prefill_step
+
+    if cfg.family != "ssm":
+        S = max(len(i) for i in ids)
+        toks = torch.tensor([i + [0] * (S - len(i)) for i in ids],
+                            dtype=torch.int32, device=device)
+        lens = torch.tensor([len(i) for i in ids], dtype=torch.int32,
+                            device=device)
+        return prefill_step(cfg, params, {"tokens": toks}, max_len=64,
+                            true_lens=lens)
+    rows = [prefill_step(cfg, params, {"tokens": torch.tensor(
+        [i], dtype=torch.int32, device=device)}) for i in ids]
+    cache = {k: torch.cat([c[k] for c, _ in rows], dim=0 if k == "pos" else 1)
+             for k in rows[0][0]}
+    return cache, torch.cat([lg for _, lg in rows])
+
+
+def cpu_vs_card(arch, tol=1e-3):
     from repro_torch.configs import get_config
-    from repro_torch.models.model import decode_step, init_model, prefill_step
+    from repro_torch.models.model import decode_step, init_model
     from repro_torch.serving.tokenizer import ByteTokenizer
 
-    cfg = dataclasses.replace(get_config("dcache-agent-150m"), n_layers=2,
-                              dtype="float32")
-    cpu_params = init_model(cfg, torch.Generator().manual_seed(1), "cpu")
-
-    def to_card(t):
-        if isinstance(t, dict):
-            return {k: to_card(v) for k, v in t.items()}
-        if isinstance(t, list):
-            return [to_card(v) for v in t]
-        return t.to("cuda")
-
-    gpu_params = to_card(cpu_params)
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    # drawn on the card (fast) and copied to the CPU
+    gpu_params = init_model(cfg, torch.Generator(device="cuda").manual_seed(1),
+                            "cuda")
+    cpu_params = tree_to(gpu_params, "cpu")
     tok = ByteTokenizer()
     ids = [tok.encode(p) for p in PROMPTS[:3]]
-    S = max(len(i) for i in ids)
-    toks = torch.tensor([i + [0] * (S - len(i)) for i in ids], dtype=torch.int32)
-    lens = torch.tensor([len(i) for i in ids], dtype=torch.int32)
-    c_cache, c_log = prefill_step(cfg, cpu_params, {"tokens": toks}, max_len=64,
-                                  true_lens=lens)
-    g_cache, g_log = prefill_step(cfg, gpu_params, {"tokens": toks.cuda()},
-                                  max_len=64, true_lens=lens.cuda())
+    c_cache, c_log = prefill(cfg, cpu_params, ids, "cpu")
+    g_cache, g_log = prefill(cfg, gpu_params, ids, "cuda")
     worst, near_ties = 0.0, 0
     for step in range(9):
         cl, gl = c_log[:, -1], g_log[:, -1].cpu()
@@ -392,10 +561,18 @@ def cpu_vs_card(tol=1e-3):
         nxt = ct[:, None].to(torch.int32)      # teacher-force the CPU's tokens
         c_log, c_cache = decode_step(cfg, cpu_params, nxt, c_cache)
         g_log, g_cache = decode_step(cfg, gpu_params, nxt.cuda(), g_cache)
-    log(f"  cpu vs card fp32 (2 layers, full width, 3 prompts, prefill + 8 "
-        f"decode steps): max |logit diff| {worst:.3e} <= {tol}; "
+    for k in c_cache:
+        cache_err = (c_cache[k].float() - g_cache[k].float().cpu()).abs().max().item()
+        assert cache_err <= tol, f"cache {k} differs by {cache_err:.3e} > {tol}"
+    log(f"  {arch} cpu vs card fp32 (2 layers, full width, 3 prompts, prefill "
+        f"+ 8 decode steps): max |logit diff| {worst:.3e} <= {tol}; "
         f"differing greedy tokens: {near_ties}")
     return worst
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -405,6 +582,7 @@ def main() -> int:
         return 1
     from repro_torch.kernels import _build
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -428,24 +606,35 @@ def main() -> int:
     check_kernels(errs)
     timing = time_kernels()
 
-    log("phase 3: full-width serving")
-    counts, serve = serve_full_width()
+    counts, serve = {}, {}
+    for arch in ("dcache-agent-150m", "rwkv6-7b"):
+        log(f"phase 3: full-width serving, {arch}")
+        c, serve[arch] = serve_full_width(arch)
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        free_card()
 
-    log("phase 4: CPU vs card, fp32")
-    cpu_vs_card()
+    for arch in ("dcache-agent-150m", "rwkv6-7b"):
+        log(f"phase 4: CPU vs card, fp32, {arch}")
+        serve[arch]["cpu_vs_card_max_logit_diff"] = cpu_vs_card(arch)
+        free_card()
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"card: {card} | serving tok/s={serve['tok_s']:.1f} "
-        f"mean_ttft_ms={serve['mean_ttft_ms']:.2f} "
-        f"decode_step_ms={serve['decode_step_ms']:.3f}")
+    for arch, sv in serve.items():
+        log(f"card: {card} | {arch} serving tok/s={sv['tok_s']:.1f} "
+            f"mean_ttft_ms={sv['mean_ttft_ms']:.2f} "
+            f"decode_step_ms={sv['decode_step_ms']:.3f}")
     src = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                        "src/repro/kernels/rmsnorm.py:27"),
            "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                 "src/repro/kernels/decode_attention.py:80"),
            "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                               "src/repro/kernels/flash_attention.py:108")}
+                               "src/repro/kernels/flash_attention.py:108"),
+           "wkv": ("src/repro_torch/kernels/csrc/rwkv_wkv.cu",
+                   "src/repro/kernels/rwkv_wkv.py:56")}
+    # launches: summed over the two served paths, each counted from zero
     kernels = [{"name": n, "route": "cuda", "source": src[n][0],
                 "replaces": src[n][1], "launches": counts[n],
                 "max_abs_err": errs[n], "ms": timing[n]["ms"],
@@ -453,9 +642,12 @@ def main() -> int:
                 "bound_ms": timing[n]["bound_ms"],
                 "bound_by": timing[n]["bound_by"],
                 "library_ms": timing[n]["library_ms"]} for n in src]
-    result = {"card": card, "serving": serve, "kernels": kernels}
+    result = {"card": card, "serving": serve, "timing": timing,
+              "max_abs_err": errs, "kernels": kernels,
+              "command_s": time.perf_counter() - t_start}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
+    log(f"total {result['command_s']:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

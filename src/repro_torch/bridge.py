@@ -3,7 +3,8 @@
 ``params_from_numpy`` takes the JAX parameter tree as numpy arrays (what
 ``unbox(init_model(...))[0]`` gives after ``np.asarray`` on every leaf) and
 returns the port's parameter dict. Layer-stacked leaves such as
-``dec/attn/wq`` of shape (L, d, hq*hd) become layer ``l``'s ``attn/wq``.
+``dec/attn/wq`` of shape (L, d, hq*hd) become layer ``l``'s ``attn/wq``,
+and likewise ``dec/tm/*`` and ``dec/cm/*`` for the ssm family (rwkv6).
 bf16 comes across through float32, which is exact in both directions.
 """
 from __future__ import annotations
@@ -25,8 +26,8 @@ def _tensor(a, cfg: ModelConfig, device: torch.device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None) -> Dict:
-    """The port's parameters from the JAX dense-family tree."""
-    if cfg.family != "dense":
+    """The port's parameters from the JAX dense- or ssm-family tree."""
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = resolve_device(device)
     dec = tree["dec"]
@@ -36,13 +37,13 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None) -> Dict:
     }
     if "unembed" in tree:
         p["unembed"] = _tensor(tree["unembed"], cfg, dev)
+    groups = ("tm", "cm") if cfg.family == "ssm" else ("attn", "mlp")
     layers = []
     for l in range(cfg.n_layers):
-        layers.append({
-            "norm1": _tensor(dec["norm1"][l], cfg, dev),
-            "norm2": _tensor(dec["norm2"][l], cfg, dev),
-            "attn": {k: _tensor(v[l], cfg, dev) for k, v in dec["attn"].items()},
-            "mlp": {k: _tensor(v[l], cfg, dev) for k, v in dec["mlp"].items()},
-        })
+        lp = {"norm1": _tensor(dec["norm1"][l], cfg, dev),
+              "norm2": _tensor(dec["norm2"][l], cfg, dev)}
+        for grp in groups:
+            lp[grp] = {k: _tensor(v[l], cfg, dev) for k, v in dec[grp].items()}
+        layers.append(lp)
     p["layers"] = layers
     return p

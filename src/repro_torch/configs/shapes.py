@@ -1,4 +1,5 @@
-"""Decode-time cache shapes (the dense family of ``repro.configs.shapes``)."""
+"""Decode-time cache shapes (the dense and ssm families of
+``repro.configs.shapes``)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -22,18 +23,28 @@ def alloc_cache(cfg: ModelConfig, batch: int, seq_len: int,
                 device: torch.device) -> Dict[str, torch.Tensor]:
     """Zeroed decode cache, laid out as ``cache_specs`` lays it out.
 
-    ``pos`` (B,) int32 and layer-stacked ring buffers ``k``/``v``
-    (L, B, C, KV*hd) in the model dtype.
+    Every family has ``pos`` (B,) int32. The dense family adds layer-stacked
+    ring buffers ``k``/``v`` (L, B, C, KV*hd) in the model dtype; the ssm
+    family (rwkv6) adds the WKV state ``ssm_state`` (L, B, H, hd, hd) in
+    fp32 and the token-shift states ``shift_tm``/``shift_cm`` (L, B, D) in
+    the model dtype.
     """
-    if cfg.family != "dense" or cfg.kv_quant:
+    if cfg.family not in ("dense", "ssm") or cfg.kv_quant:
         raise NotImplementedError(
             f"cache for family {cfg.family!r} (kv_quant={cfg.kv_quant}) is "
             "not ported yet")
+    L, dt = cfg.n_layers, cfg.torch_dtype
+    cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if cfg.family == "ssm":
+        H, hd = cfg.n_ssm_heads, cfg.ssm.head_dim
+        cache["ssm_state"] = torch.zeros((L, batch, H, hd, hd),
+                                         dtype=torch.float32, device=device)
+        for k in ("shift_tm", "shift_cm"):
+            cache[k] = torch.zeros((L, batch, cfg.d_model), dtype=dt,
+                                   device=device)
+        return cache
     C = effective_cache_len(cfg, seq_len)
-    kv = cfg.n_kv_heads * cfg.head_dim_
-    shape = (cfg.n_layers, batch, C, kv)
-    return {
-        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-    }
+    shape = (L, batch, C, cfg.n_kv_heads * cfg.head_dim_)
+    cache["k"] = torch.zeros(shape, dtype=dt, device=device)
+    cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+    return cache

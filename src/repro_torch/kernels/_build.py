@@ -40,6 +40,7 @@ SIGNATURES: Dict[str, List] = {
     + [_L] * 8 + [_I, _I, _F, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_I, _I, _I, _F, _I, _P],
+    "repro_wkv": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I, _P],
 }
 
 # what the last build printed (ptxas register/shared-memory report) and took

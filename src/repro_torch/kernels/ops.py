@@ -12,10 +12,11 @@ from typing import Dict
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rwkv_wkv import wkv
 
-KERNELS = (rmsnorm, flash_attention, decode_attention)
+KERNELS = (rmsnorm, flash_attention, decode_attention, wkv)
 
-__all__ = ["rmsnorm", "flash_attention", "decode_attention",
+__all__ = ["rmsnorm", "flash_attention", "decode_attention", "wkv",
            "launch_counts", "reset_launch_counts"]
 
 

@@ -1,0 +1,102 @@
+"""RWKV6 WKV recurrence: the Hopper kernel ``csrc/rwkv_wkv.cu`` and its
+plain version.
+
+Replaces the TPU kernel ``repro/kernels/rwkv_wkv.py`` (``wkv`` /
+``_wkv_kernel``). For each (b, h) the fp32 hd x hd state S runs over time:
+
+    y_t = r_t (S + u * k_t^T v_t);   S <- diag(w_t) S + k_t^T v_t
+
+At a decode step bytes bound it on the H100 (the fp32 state is read and
+written once); at prefill the sequential time loop's latency does. The
+kernel takes one block per (b, h), keeps the state in registers (thread j
+holds column j) and loops over time inside the block; see the source.
+
+The interface is the model's (``repro.models.rwkv.wkv_scan``), not the TPU
+kernel's: r/k/v/w are (B,S,H,hd), of which the TPU kernel's (B,H,S,hd) is a
+transposed view, so nothing is transposed per call.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (64,)  # the registry's WKV head dims; each one is built and checked
+
+
+def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor,
+              s0: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A Python loop over t of fp32 einsums (``repro.kernels.ref.ref_wkv``
+    with an initial state). r/k/v/w: (B,S,H,hd); u: (H,hd); s0: (B,H,hd,hd)
+    or None for zeros. Returns y (B,S,H,hd) in r's dtype and the final state
+    (B,H,hd,hd) in fp32."""
+    B, S, H, hd = r.shape
+    s = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    uf = u.float()[None, :, :, None]
+    ys = []
+    for t in range(S):
+        rt, kt, vt, wt = (x[:, t].float() for x in (r, k, v, w))
+        kv = torch.einsum("bhi,bhj->bhij", kt, vt)
+        ys.append(torch.einsum("bhi,bhij->bhj", rt, s + uf * kv))
+        s = wt[..., None] * s + kv
+    return torch.stack(ys, dim=1).to(r.dtype), s
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+        u: torch.Tensor, *, s0: Optional[torch.Tensor] = None,
+        state_out: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r/k/v: (B,S,H,hd) in the model dtype and w: (B,S,H,hd) fp32, any
+    strides with a contiguous last dimension; u: (H,hd) in the model dtype;
+    s0: (B,H,hd,hd) fp32 or None (zeros). Returns (y (B,S,H,hd) in r's
+    dtype, final state fp32). The final state is written to ``state_out``
+    when given, which may be ``s0`` itself (an in-place update). CPU tensors
+    take the plain version, CUDA tensors the kernel."""
+    tensors = [r, k, v, w, u] + [t for t in (s0, state_out) if t is not None]
+    if _build.use_plain("wkv", *tensors):
+        y, s = wkv_plain(r, k, v, w, u, s0)
+        if state_out is not None:
+            state_out.copy_(s)
+            s = state_out
+        return y, s
+    code = _build.dtype_code("wkv", r, k, v, u)
+    B, S, H, hd = r.shape
+    if k.shape != r.shape or v.shape != r.shape or w.shape != r.shape:
+        raise ValueError(f"wkv: r/k/v/w shapes differ: {tuple(r.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, {tuple(w.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"wkv: head dim {hd} not in {HEAD_DIMS}")
+    if w.dtype != torch.float32:
+        raise TypeError(f"wkv: w must be float32, got {w.dtype}")
+    if u.shape != (H, hd) or not u.is_contiguous():
+        raise ValueError(f"wkv: u must be contiguous ({H},{hd}), got "
+                         f"{tuple(u.shape)}")
+    if any(t.stride(-1) != 1 for t in (r, k, v, w)):
+        raise ValueError("wkv: last dimension must be contiguous")
+    for name, t in (("s0", s0), ("state_out", state_out)):
+        if t is not None and (t.shape != (B, H, hd, hd)
+                              or t.dtype != torch.float32
+                              or not t.is_contiguous()):
+            raise ValueError(f"wkv: {name} must be contiguous ({B},{H},{hd},"
+                             f"{hd}) float32")
+    y = torch.empty((B, S, H, hd), dtype=r.dtype, device=r.device)
+    s_out = state_out if state_out is not None else torch.empty(
+        (B, H, hd, hd), dtype=torch.float32, device=r.device)
+    lib = _build.load_library()
+    err = lib.repro_wkv(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        None if s0 is None else s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+        B, H, S, hd,
+        *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *w.stride()[:3],
+        code, _build.stream_ptr(r))
+    _build.check(err, "wkv")
+    wkv.launches += 1
+    return y, s_out
+
+
+wkv.launches = 0

@@ -2,8 +2,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve            # full width, cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --smoke --device cpu
 
-Serves ``dcache-agent-150m`` with random weights from a
+Serves ``--arch`` (``dcache-agent-150m`` by default, or ``rwkv6-7b``: 7.6 B
+parameters, about 15 GB in bf16) with random weights from a
 ``torch.Generator`` seeded with 0. ``--smoke`` selects the reduced config
 (vocab 512).
 """

@@ -1,9 +1,11 @@
-"""The dense decoder and its serving steps (``repro.models.model``).
+"""The dense and rwkv6 (ssm) decoders and their serving steps
+(``repro.models.model``).
 
 Parameters are a plain dict: ``embed`` (padded_vocab, D), ``final_norm``
 (D,), optionally ``unembed`` (D, padded_vocab), and ``layers``, a list with
-one dict per layer (``norm1``, ``norm2``, ``attn`` and ``mlp`` weights). A
-Python loop over ``layers`` takes the place of ``lax.scan``.
+one dict per layer: ``norm1``, ``norm2`` and the ``attn`` and ``mlp``
+weights (dense) or the ``tm`` (time-mix) and ``cm`` (channel-mix) weights
+(ssm). A Python loop over ``layers`` takes the place of ``lax.scan``.
 
     init_model(cfg, generator, device)          -> params
     forward(cfg, params, batch)                 -> final hidden states
@@ -20,15 +22,16 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import effective_cache_len
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import mlp_moe
+from repro_torch.models import mlp_moe, rwkv
 from repro_torch.models.common import init_param, rms_norm
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.frontend != "none" or cfg.is_encdec:
+    if cfg.family not in ("dense", "ssm") or cfg.frontend != "none" \
+            or cfg.is_encdec:
         raise NotImplementedError(
             f"family {cfg.family!r} (frontend {cfg.frontend!r}) is not ported "
-            "yet; only the dense decoder is")
+            "yet; only the dense decoder and rwkv6 (ssm) are")
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
@@ -45,12 +48,15 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
         p["unembed"] = init_param((D, cfg.padded_vocab), generator, dt, dev)
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
-            "norm1": torch.ones((D,), dtype=dt, device=dev),
-            "norm2": torch.ones((D,), dtype=dt, device=dev),
-            "attn": attn_mod.init_attention(cfg, generator, dev),
-            "mlp": mlp_moe.init_mlp(cfg, generator, dev),
-        })
+        lp = {"norm1": torch.ones((D,), dtype=dt, device=dev),
+              "norm2": torch.ones((D,), dtype=dt, device=dev)}
+        if cfg.family == "ssm":
+            lp["tm"] = rwkv.init_time_mix(cfg, generator, dev)
+            lp["cm"] = rwkv.init_channel_mix(cfg, generator, dev)
+        else:
+            lp["attn"] = attn_mod.init_attention(cfg, generator, dev)
+            lp["mlp"] = mlp_moe.init_mlp(cfg, generator, dev)
+        layers.append(lp)
     p["layers"] = layers
     return p
 
@@ -76,12 +82,42 @@ def _unembed(cfg: ModelConfig, p: Dict, h: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _rwkv_stack_full(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
+                     collect_cache: bool):
+    """The rwkv6 layers over a whole sequence from a zero state and zero
+    token shifts. Returns (x, cache) with the layer-stacked ``ssm_state``
+    (L,B,H,hd,hd) fp32 and ``shift_tm``/``shift_cm`` (L,B,D), or None."""
+    shift0 = torch.zeros((x.shape[0], cfg.d_model), dtype=x.dtype,
+                         device=x.device)
+    states, tm_shifts, cm_shifts = [], [], []
+    for lp in params["layers"]:
+        a_in = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        tm_out, tm_shift, s_f = rwkv.time_mix(lp["tm"], cfg, a_in, shift0, None)
+        x = x + tm_out
+        c_in = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        cm_out, cm_shift = rwkv.channel_mix(lp["cm"], cfg, c_in, shift0)
+        x = x + cm_out
+        states.append(s_f)
+        tm_shifts.append(tm_shift)
+        cm_shifts.append(cm_shift)
+    if not collect_cache:
+        return x, None
+    return x, {"ssm_state": torch.stack(states),
+               "shift_tm": torch.stack(tm_shifts),
+               "shift_cm": torch.stack(cm_shifts)}
+
+
 def forward(cfg: ModelConfig, params: Dict, batch: Dict, *,
             collect_cache: bool = False, cache_len: int = 0):
     """Final hidden states (B,S,D) and, with ``collect_cache``, the
-    layer-stacked ring-buffer cache {"k", "v"} of (L,B,cache_len,KV*hd)."""
+    layer-stacked cache: the ring buffers {"k", "v"} of
+    (L,B,cache_len,KV*hd) for the dense family, the recurrent state
+    {"ssm_state", "shift_tm", "shift_cm"} for ssm."""
     _check_family(cfg)
     x = _embed_tokens(cfg, params, batch)
+    if cfg.family == "ssm":
+        x, cache = _rwkv_stack_full(cfg, params, x, collect_cache=collect_cache)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
     ks, vs = [], []
     for lp in params["layers"]:
         a_in = rms_norm(x, lp["norm1"], cfg.norm_eps)
@@ -106,7 +142,9 @@ def prefill_step(cfg: ModelConfig, params: Dict, batch: Dict,
 
     ``true_lens`` (B,) supports right-padded prompts: logits are taken at
     each row's true last token and decoding starts there; the padded ring
-    slots are masked at decode because their slot position exceeds pos."""
+    slots are masked at decode because their slot position exceeds pos.
+    The recurrent (ssm) state has no such mask: its prompts must not be
+    padded (the engine prefills them at their exact length)."""
     B, S = batch["tokens"].shape
     C = effective_cache_len(cfg, max_len or S)
     h, cache = forward(cfg, params, batch, collect_cache=True, cache_len=C)
@@ -124,22 +162,44 @@ def prefill_step(cfg: ModelConfig, params: Dict, batch: Dict,
     return cache, logits
 
 
+def _rwkv_decode(cfg: ModelConfig, params: Dict, x: torch.Tensor,
+                 cache: Dict) -> torch.Tensor:
+    """The rwkv6 layers for one token; the cache's ``ssm_state``,
+    ``shift_tm`` and ``shift_cm`` are updated in place."""
+    for l, lp in enumerate(params["layers"]):
+        a_in = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        tm_out, tm_shift, _ = rwkv.time_mix_step(
+            lp["tm"], cfg, a_in, cache["shift_tm"][l], cache["ssm_state"][l])
+        cache["shift_tm"][l].copy_(tm_shift)
+        x = x + tm_out
+        c_in = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        cm_out, cm_shift = rwkv.channel_mix(lp["cm"], cfg, c_in,
+                                            cache["shift_cm"][l])
+        cache["shift_cm"][l].copy_(cm_shift)
+        x = x + cm_out
+    return x
+
+
 def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                 cache: Dict):
     """One decode step for the whole batch. tokens: (B,1).
 
-    The cache's K/V buffers are updated IN PLACE (the JAX version returns a
-    new cache); ``pos`` is replaced by pos + 1. Returns (logits, cache)."""
+    The cache's buffers (K/V, or the recurrent state and token shifts) are
+    updated IN PLACE (the JAX version returns a new cache); ``pos`` is
+    replaced by pos + 1. Returns (logits, cache)."""
     _check_family(cfg)
     x = params["embed"][tokens.long()]
     pos = cache["pos"]
-    for l, lp in enumerate(params["layers"]):
-        a_in = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        a_out, _, _ = attn_mod.decode_attend(lp["attn"], cfg, a_in, pos,
-                                             cache["k"][l], cache["v"][l])
-        x = x + a_out
-        f_in = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + mlp_moe.mlp(lp["mlp"], cfg, f_in)
+    if cfg.family == "ssm":
+        x = _rwkv_decode(cfg, params, x, cache)
+    else:
+        for l, lp in enumerate(params["layers"]):
+            a_in = rms_norm(x, lp["norm1"], cfg.norm_eps)
+            a_out, _, _ = attn_mod.decode_attend(lp["attn"], cfg, a_in, pos,
+                                                 cache["k"][l], cache["v"][l])
+            x = x + a_out
+            f_in = rms_norm(x, lp["norm2"], cfg.norm_eps)
+            x = x + mlp_moe.mlp(lp["mlp"], cfg, f_in)
     cache["pos"] = pos + 1
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h), cache

@@ -2,9 +2,12 @@
 
 A fixed decode batch of ``max_batch`` slots steps in lockstep (one
 ``decode_step`` per engine step, empty slots included); requests are
-admitted into free slots by a single-row prefill (prompt right-padded to a
-power-of-two bucket, masked by construction, see ``prefill_step``) whose
-cache row is copied into the batch cache. Completed rows free their slot.
+admitted into free slots by a single-row prefill whose cache row is copied
+into the batch cache. Attention prompts are right-padded to a power-of-two
+bucket (masked by construction, see ``prefill_step``); recurrent (ssm,
+hybrid) prompts are prefilled at their exact length, since pad tokens would
+pass through the recurrent state and the token shift. Completed rows free
+their slot.
 """
 from __future__ import annotations
 
@@ -72,11 +75,14 @@ class ServingEngine:
 
     # -- cache plumbing -------------------------------------------------------
     def _install(self, slot: int, row_cache: Dict):
-        """Copy a B=1 prefill cache (built with this engine's max_len, so
-        its ring has the batch cache's length) into slot ``slot``."""
+        """Copy every leaf of a B=1 prefill cache (built with this engine's
+        max_len, so a ring has the batch cache's length) into slot
+        ``slot``: ``pos`` is (B,), the other leaves are layer-stacked
+        (L, B, ...)."""
         self.cache["pos"][slot] = row_cache["pos"][0]
-        for k in ("k", "v"):
-            self.cache[k][:, slot] = row_cache[k][:, 0]
+        for k, v in row_cache.items():
+            if k != "pos":
+                self.cache[k][:, slot] = v[:, 0]
 
     # -- public API -----------------------------------------------------------
     def submit(self, prompt: str, max_new_tokens: int = 32,
@@ -90,12 +96,13 @@ class ServingEngine:
         return req
 
     def _admit(self):
+        exact = self.cfg.family in ("ssm", "hybrid")  # recurrent state: no pad
         for slot in range(self.max_batch):
             if self.slots[slot] is not None or not self.waiting:
                 continue
             req = self.waiting.pop(0)
             n = len(req.prompt_ids)
-            bucket = _bucket(n, self.max_len)
+            bucket = n if exact else _bucket(n, self.max_len)
             ids = req.prompt_ids + [0] * (bucket - n)
             batch = {"tokens": torch.tensor([ids], dtype=torch.int32,
                                             device=self.device)}

@@ -17,6 +17,7 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.models.model import init_model
 from repro_torch.serving import ServingEngine
+from test_torch_rwkv import noisy_jax_params
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -53,6 +54,32 @@ def test_params_names_shapes_dtypes(dtype):
                 assert t.dtype == tcfg.torch_dtype
                 np.testing.assert_array_equal(t.float().numpy(),
                                               src.astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_params_names_shapes_dtypes(dtype):
+    tcfg = dataclasses.replace(get_config("rwkv6-7b").reduced(), dtype=dtype)
+    jcfg = dataclasses.replace(jax_get_config("rwkv6-7b").reduced(), dtype=dtype)
+    _, tree = noisy_jax_params(jcfg)
+    p = params_from_numpy(tree, tcfg, device="cpu")
+    assert set(p) == {"embed", "final_norm", "unembed", "layers"}
+    assert p["unembed"].shape == (tcfg.d_model, tcfg.padded_vocab)
+    np.testing.assert_array_equal(p["unembed"].float().numpy(),
+                                  tree["unembed"].astype(np.float32))
+    assert len(p["layers"]) == tcfg.n_layers
+    for l, lp in enumerate(p["layers"]):
+        assert set(lp) == {"norm1", "norm2", "tm", "cm"}
+        assert set(lp["tm"]) == set(tree["dec"]["tm"])
+        assert {"mu_x", "u", "w0", "ln_x", "la_w", "lb_w", "wo"} <= set(lp["tm"])
+        assert set(lp["cm"]) == {"mu_k", "mu_r", "wk", "wv", "wr"}
+        for grp in ("tm", "cm"):
+            for k, t in lp[grp].items():
+                src = tree["dec"][grp][k][l]
+                assert tuple(t.shape) == src.shape, (grp, k)
+                assert t.dtype == tcfg.torch_dtype
+                np.testing.assert_array_equal(t.float().numpy(),
+                                              src.astype(np.float32))
+        assert lp["tm"]["u"].any() and lp["tm"]["mu_x"].any()
 
 
 def test_bf16_round_trip_is_exact():

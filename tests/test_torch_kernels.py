@@ -16,6 +16,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
+from repro_torch.kernels.rwkv_wkv import wkv_plain
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -149,8 +150,13 @@ def test_wrappers_on_cpu_take_plain_and_count_nothing():
                        decode_attention_plain(q1, kc, tv, pos))
     g = torch.ones(32)
     assert torch.equal(tops.rmsnorm(tq, g), rmsnorm_plain(tq, g))
+    r, k, v = tq, tk.repeat(1, 2, 1, 1), tv.repeat(1, 2, 1, 1)
+    w, u = torch.full_like(r, 0.9), torch.ones((16, 32))
+    y, s = tops.wkv(r, k, v, w, u)
+    y_ref, s_ref = wkv_plain(r, k, v, w, u)
+    assert torch.equal(y, y_ref) and torch.equal(s, s_ref)
     assert tops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
-                                    "decode_attention": 0}
+                                    "decode_attention": 0, "wkv": 0}
 
 
 def test_wrappers_refuse_other_devices():

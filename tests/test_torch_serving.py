@@ -19,6 +19,7 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.serving import ServingEngine
 from repro_torch.serving import engine as engine_mod
+from test_torch_rwkv import noisy_jax_params
 
 PROMPTS = ("alpha", "a much longer prompt about satellites", "geo")
 
@@ -99,3 +100,57 @@ def test_torch_llm_complete_returns_text(setup):
     out = llm.complete("Detect airplanes in this area")
     assert isinstance(out, str)
     assert llm.engine.finished[-1].done
+
+
+# ---------------------------------------------------------------------------
+# rwkv6 (ssm): recurrent state, prompts at their exact length
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ssm_setup():
+    """Reduced rwkv6-7b at fp32, vocab 512, with seeded noise on the
+    zero-initialised ``u``, ``w0`` and ``mu_*`` leaves of the JAX tree."""
+    jcfg = dataclasses.replace(jax_get_config("rwkv6-7b").reduced(),
+                               vocab_size=512, dtype="float32")
+    tcfg = dataclasses.replace(get_config("rwkv6-7b").reduced(),
+                               vocab_size=512, dtype="float32")
+    jp, tree = noisy_jax_params(jcfg)
+    return jcfg, tcfg, jp, params_from_numpy(tree, tcfg, device="cpu")
+
+
+@pytest.mark.parametrize("max_batch", [3, 2])
+def test_ssm_greedy_out_ids_match_jax_engine(ssm_setup, max_batch):
+    """Three prompts of three lengths; with 2 slots the third request
+    reuses a freed slot, so its installed state must replace the old one."""
+    jcfg, tcfg, jp, tp = ssm_setup
+    jeng = JaxServingEngine(jcfg, jp, max_batch=max_batch, max_len=96)
+    jreqs = [jeng.submit(p, max_new_tokens=6) for p in PROMPTS]
+    jeng.run_until_done()
+    teng = ServingEngine(tcfg, tp, max_batch=max_batch, max_len=96, device="cpu")
+    treqs = [teng.submit(p, max_new_tokens=6) for p in PROMPTS]
+    teng.run_until_done()
+    assert [r.out_ids for r in treqs] == [r.out_ids for r in jreqs]
+    assert teng.steps == jeng.steps
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "dcache-agent-150m"])
+def test_prompt_length_at_prefill(setup, ssm_setup, monkeypatch, arch):
+    """An ssm prompt is prefilled at its exact length (pad tokens would
+    enter the recurrent state); a dense one is right-padded to its bucket."""
+    _, tcfg, _, tp = ssm_setup if arch == "rwkv6-7b" else setup
+    seen = []
+    real = engine_mod.prefill_step
+
+    def spy(cfg, params, batch, **kw):
+        seen.append((batch["tokens"].shape[1], int(kw["true_lens"][0])))
+        return real(cfg, params, batch, **kw)
+
+    monkeypatch.setattr(engine_mod, "prefill_step", spy)
+    eng = ServingEngine(tcfg, tp, max_batch=2, max_len=96, device="cpu")
+    reqs = [eng.submit(p, max_new_tokens=2) for p in PROMPTS]
+    eng.run_until_done()
+    lens = [len(r.prompt_ids) for r in reqs]
+    assert [n for _, n in seen] == lens
+    expect = lens if arch == "rwkv6-7b" else [engine_mod._bucket(n, 96) for n in lens]
+    assert [s for s, _ in seen] == expect
+    assert expect != lens or arch == "rwkv6-7b"
