@@ -5,12 +5,16 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels from src/repro_torch/kernels/csrc/ and print the
-     build time and ptxas report;
+     build time and each kernel's ptxas registers, shared memory and spills;
   2. hold each kernel against its plain PyTorch version on the card, in bf16
      (atol = rtol = 2e-2) and fp32 (1e-4, sums in another order), at the main
-     paths' shapes and ragged ones (the WKV kernel also with its state
-     updated in place); time kernel, plain version and the library call
-     (CUDA events, median of 50) at the main paths' shapes;
+     paths' shapes and ragged ones: decode rings whose length is not a
+     multiple of the split (C = 100) and whose splits are wholly masked or
+     empty, windows that end inside a split, prompts whose packed rows cross
+     the S*G edge, S = 512 (the engine's max_len); the WKV kernel also with
+     its state updated in place. A misaligned view must raise and launch
+     nothing. Time kernel, plain version and the library call (CUDA events,
+     median of 50) at the main paths' shapes, and prefill also at S = 512;
   3. serve two models at full width in bf16, each with random weights from a
      seeded torch.Generator, through ServingEngine(max_batch=4, max_len=512)
      (8 prompts x 32 new tokens) and then one TorchLLM.complete:
@@ -152,7 +156,7 @@ def check_kernels(errs):
                 g = randn(gen, dm, dtype=dtype)
                 compare("rmsnorm", f"rows={rows} d={dm}", ops.rmsnorm(x, g),
                         rmsnorm_plain(x, g), dtype, errs)
-        for S in (8, 9, 37, 64, 256):
+        for S in (8, 9, 37, 64, 256, 512):
             # the model's layouts: q (1,S,Hq,d), k/v (1,S,Hkv,d), seen as (B,H,S,d)
             q = randn(gen, 1, S, Hq, d, dtype=dtype).transpose(1, 2)
             k = randn(gen, 1, S, Hkv, d, dtype=dtype).transpose(1, 2)
@@ -163,22 +167,77 @@ def check_kernels(errs):
                 compare("flash_attention", f"S={S} {mask}",
                         ops.flash_attention(q, k, v, **kw),
                         flash_attention_plain(q, k, v, **kw), dtype, errs)
-        for C in (64, 512):
+        # C = 100: not a multiple of the 8 splits, the last range is short;
+        # C = 512 with pos in {0, 1, 63, 64}: whole splits masked or empty
+        for C in (64, 100, 512):
             kc = randn(gen, B, C, Hkv * d, dtype=dtype)   # the cache slice
             vc = randn(gen, B, C, Hkv * d, dtype=dtype)
             k = kc.view(B, C, Hkv, d).transpose(1, 2)
             v = vc.view(B, C, Hkv, d).transpose(1, 2)
             q = randn(gen, B, Hq, d, dtype=dtype)
-            for pcase, pos in (("pos<C", [0, 5, 17, C // 2]),
-                               ("pos=C-1", [C - 1] * B),
-                               ("pos>2C", [2 * C + 1, 2 * C + 7, 3 * C + 3, 5 * C])):
+            pcases = [("pos<C", [0, 5, 17, C // 2]), ("pos=C-1", [C - 1] * B),
+                      ("pos>2C", [2 * C + 1, 2 * C + 7, 3 * C + 3, 5 * C])]
+            if C == 512:
+                pcases.append(("pos={0,1,63,64}", [0, 1, 63, 64]))
+            for pcase, pos in pcases:
                 p = torch.tensor(pos, dtype=torch.int32, device="cuda")
                 for mask, kw in (("none", {}), ("window48", {"window": 48}),
                                  ("chunk32", {"chunk": 32})):
                     compare("decode_attention", f"C={C} {pcase} {mask}",
                             ops.decode_attention(q, k, v, p, **kw),
                             decode_attention_plain(q, k, v, p, **kw), dtype, errs)
+            # a window that ends inside a split (64 slots each at C = 512)
+            p = torch.tensor([100, 300, 700, 1000], dtype=torch.int32, device="cuda")
+            compare("decode_attention", f"C={C} window40 ends mid-split",
+                    ops.decode_attention(q, k, v, p, window=40),
+                    decode_attention_plain(q, k, v, p, window=40), dtype, errs)
+        check_group16(gen, dtype, errs)
+        check_misaligned(gen, dtype)
     check_wkv(errs)
+
+
+def check_group16(gen, dtype, errs):
+    """G = 16 query heads over one kv head: a decode block of 16 warps (one
+    per head), and 16 heads packed into a flash tile."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    q = randn(gen, 1, 37, 16, 64, dtype=dtype).transpose(1, 2)
+    k = randn(gen, 1, 37, 1, 64, dtype=dtype).transpose(1, 2)
+    v = randn(gen, 1, 37, 1, 64, dtype=dtype).transpose(1, 2)
+    compare("flash_attention", "G=16 S=37 causal", ops.flash_attention(q, k, v),
+            flash_attention_plain(q, k, v), dtype, errs)
+    for C, pos in ((100, [3, 50, 99, 250]), (512, [1100, 1300, 1500, 2047])):
+        kc = randn(gen, 4, C, 64, dtype=dtype).view(4, C, 1, 64).transpose(1, 2)
+        vc = randn(gen, 4, C, 64, dtype=dtype).view(4, C, 1, 64).transpose(1, 2)
+        q = randn(gen, 4, 16, 64, dtype=dtype)
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        compare("decode_attention", f"G=16 C={C} window48",
+                ops.decode_attention(q, kc, vc, p, window=48),
+                decode_attention_plain(q, kc, vc, p, window=48), dtype, errs)
+
+
+def check_misaligned(gen, dtype):
+    """A view offset by one element must raise before any launch: the
+    attention kernels copy 16-byte rows."""
+    from repro_torch.kernels import ops
+
+    Hq, Hkv, S, d = 12, 4, 64, 64
+    q = randn(gen, 1, S, Hq, d + 1, dtype=dtype)[..., 1:].transpose(1, 2)
+    k = randn(gen, 1, S, Hkv, d, dtype=dtype).transpose(1, 2)
+    before = ops.launch_counts()
+    for name, call in (
+            ("flash_attention", lambda: ops.flash_attention(q, k, k)),
+            ("decode_attention", lambda: ops.decode_attention(
+                q[:, :, 0], k, k, torch.zeros(1, dtype=torch.int32, device="cuda")))):
+        try:
+            call()
+        except ValueError as e:
+            log(f"  {name} misaligned view {str(dtype)[6:]}: raised ({e})")
+        else:
+            raise AssertionError(f"{name}: a misaligned view did not raise")
+    assert ops.launch_counts() == before, "a misaligned view launched a kernel"
 
 
 def wkv_inputs(gen, B, S, H, hd, dtype):
@@ -227,7 +286,8 @@ def time_kernels():
     """Kernel / plain / library times at the main path's shapes (bf16)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
-    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.decode_attention import (decode_attention_plain,
+                                                      split_geometry)
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.rmsnorm import rmsnorm_plain
     from repro_torch.kernels.rwkv_wkv import wkv_plain
@@ -265,8 +325,10 @@ def time_kernels():
     b, by = bound_ms(nb, 4 * valid * Hq * d, dt)
     kk, vv, qq = k.contiguous(), v.contiguous(), q[:, :, None]
     mask = torch.ones((B, 1, 1, C), dtype=torch.bool, device="cuda")
+    n_split, per = split_geometry(C)
     rows["decode_attention"] = dict(
-        shape=f"q ({B},{Hq},{d}), cache ({B},{C},{Hkv * d}) bf16, full ring",
+        shape=f"q ({B},{Hq},{d}), cache ({B},{C},{Hkv * d}) bf16, full ring; "
+              f"grid ({n_split},{Hkv},{B}), clusters of {n_split}, {per} slots each",
         ms=time_ms(lambda: ops.decode_attention(q, k, v, pos)),
         plain_ms=time_ms(lambda: decode_attention_plain(q, k, v, pos)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -277,26 +339,26 @@ def time_kernels():
             lambda: ops.decode_attention(q, k, v, pos), 20)[0], "decode_kernel"),
         bound_ms=b, bound_by=by)
 
-    # prefill attention at the commonest prompt bucket: B=1, S=64, causal
-    S = 64
-    q = randn(gen, 1, S, Hq, d, dtype=dt).transpose(1, 2)
-    k = randn(gen, 1, S, Hkv, d, dtype=dt).transpose(1, 2)
-    v = randn(gen, 1, S, Hkv, d, dtype=dt).transpose(1, 2)
-    pairs = S * (S + 1) // 2
-    nb = (2 * Hq + 2 * Hkv) * S * d * es
-    b, by = bound_ms(nb, 4 * pairs * Hq * d, dt)
-    qc, kc2, vc2 = q.contiguous(), k.contiguous(), v.contiguous()
-    rows["flash_attention"] = dict(
-        shape=f"q (1,{Hq},{S},{d}), k/v (1,{Hkv},{S},{d}) bf16, causal",
-        ms=time_ms(lambda: ops.flash_attention(q, k, v)),
-        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qc, kc2, vc2, is_causal=True, enable_gqa=True)),
-        library_device_us=all_device_us(lambda: F.scaled_dot_product_attention(
-            qc, kc2, vc2, is_causal=True, enable_gqa=True)),
-        device_us=kernel_device_us(device_profile(
-            lambda: ops.flash_attention(q, k, v), 20)[0], "flash_kernel"),
-        bound_ms=b, bound_by=by)
+    # prefill attention at the commonest prompt bucket (B=1, S=64, causal)
+    # and at the engine's max_len (S=512)
+    for key, S in (("flash_attention", 64), ("flash_attention_s512", 512)):
+        q = randn(gen, 1, S, Hq, d, dtype=dt).transpose(1, 2)
+        k = randn(gen, 1, S, Hkv, d, dtype=dt).transpose(1, 2)
+        v = randn(gen, 1, S, Hkv, d, dtype=dt).transpose(1, 2)
+        pairs = S * (S + 1) // 2
+        nb = (2 * Hq + 2 * Hkv) * S * d * es
+        b, by = bound_ms(nb, 4 * pairs * Hq * d, dt)
+        qc, kc2, vc2 = q.contiguous(), k.contiguous(), v.contiguous()
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qc, kc2, vc2, is_causal=True, enable_gqa=True)
+        rows[key] = dict(
+            shape=f"q (1,{Hq},{S},{d}), k/v (1,{Hkv},{S},{d}) bf16, causal",
+            ms=time_ms(lambda: ops.flash_attention(q, k, v)),
+            plain_ms=time_ms(lambda: flash_attention_plain(q, k, v)),
+            library_ms=time_ms(sdpa), library_device_us=all_device_us(sdpa),
+            device_us=kernel_device_us(device_profile(
+                lambda: ops.flash_attention(q, k, v), 20)[0], "flash_kernel"),
+            bound_ms=b, bound_by=by)
 
     # rmsnorm at the rwkv6-7b decode step's shapes: norm1/norm2 (4,1,4096)
     # and the per-head ln_x norm, 4*64 rows of 64
@@ -597,8 +659,9 @@ def main() -> int:
     ptxas = str(_build.build_log.get("ptxas", ""))
     with open(os.path.join(OUT_DIR, "ptxas.log"), "w") as f:
         f.write(ptxas)
-    for line in ptxas.splitlines():
-        if "Used" in line or "spill" in line:
+    for line in ptxas.splitlines():   # per kernel: name, spills, registers
+        if line.startswith("==") or "entry function" in line or "Used" in line \
+                or "spill" in line:
             log("  " + line.strip())
 
     log("phase 2: kernels against their plain versions on the card")

@@ -58,22 +58,20 @@ def _nvcc() -> str:
                        "on a machine with the CUDA toolkit")
 
 
-def _sources() -> List[Path]:
-    return sorted(CSRC.glob("*.cu"))
-
-
-def _digest() -> str:
+def _digest(csrc: Path) -> str:
     h = hashlib.sha256()
-    for p in sorted(CSRC.iterdir()):
+    for p in sorted(csrc.iterdir()):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile every source in parallel and link them into one library."""
-    lib_path = BUILD_DIR / f"librepro_kernels_{_digest()}.so"
+def build(csrc: Path = CSRC) -> Path:
+    """Compile every source of csrc (by default this package's) in parallel
+    and link them into one library."""
+    csrc = Path(csrc)
+    lib_path = BUILD_DIR / f"librepro_kernels_{_digest(csrc)}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -81,7 +79,7 @@ def build() -> Path:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
-        for src in _sources():
+        for src in sorted(csrc.glob("*.cu")):
             obj = Path(tmp) / (src.stem + ".o")
             cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
@@ -107,9 +105,10 @@ def build() -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The built library with every entry point's ``argtypes`` set."""
-    lib = ctypes.CDLL(str(build()))
+def load_library(csrc: Path = CSRC) -> ctypes.CDLL:
+    """The library built from csrc (by default this package's sources) with
+    every entry point's ``argtypes`` set."""
+    lib = ctypes.CDLL(str(build(csrc)))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -147,6 +146,21 @@ def dtype_code(name: str, *tensors: torch.Tensor) -> int:
         raise TypeError(f"{name}: needs one dtype of {list(DTYPE_CODES)}, got "
                         f"{sorted(map(str, dts))}")
     return DTYPE_CODES[dts.pop()]
+
+
+def check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor's base pointer and every stride but the
+    last (of dimensions longer than 1) are multiples of 16 bytes: the
+    attention kernels copy rows with 16-byte vector loads."""
+    for t in tensors:
+        es = t.element_size()
+        bad = [s for n, s in zip(t.shape[:-1], t.stride()[:-1])
+               if n > 1 and (s * es) % 16]
+        if t.data_ptr() % 16 or bad:
+            raise ValueError(f"{name}: base pointer and strides must be "
+                             f"multiples of 16 bytes, got pointer % 16 = "
+                             f"{t.data_ptr() % 16}, strides {t.stride()} of "
+                             f"{es}-byte elements")
 
 
 def stream_ptr(t: torch.Tensor) -> int:

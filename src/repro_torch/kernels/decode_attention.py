@@ -2,14 +2,19 @@
 ``csrc/decode_attention.cu`` and its plain version.
 
 Replaces the TPU kernel ``repro/kernels/decode_attention.py``
-(``decode_attention`` / ``_decode_kernel``). Bytes bound it on the H100:
-each K/V slot is read once and shared by the G query heads of its group. The
-kernel takes one block per (b, kv head), one warp per query head, and loops
-over the ring buffer inside the block; see the source for the design.
+(``decode_attention`` / ``_decode_kernel``). Bytes bound it on the H100
+(each K/V slot is read once and shared by the G query heads of its group),
+but at the serving shape the call reads 2 MB, so latency is what limits it:
+how many loads are in flight and on how many SMs. The kernel splits the
+ring into ``n_split`` ranges (``split_geometry``), one block each in a
+thread-block cluster per (b, kv head); each block brings its range in with
+16-byte ``cp.async`` copies, skips ranges the masks hide, and computes a
+partial (m, l, acc); the cluster's first block merges the partials from
+distributed shared memory, all in one launch. See the source for the design.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -18,6 +23,19 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 HEAD_DIMS = (64,)  # the registry's head dims; each one is built and checked
 MAX_GROUP = 32
+MAX_SPLIT = 8      # the kernel's cluster size: the largest portable one
+
+
+def split_geometry(C: int) -> Tuple[int, int]:
+    """The kernel's launch geometry for a ring of C slots: (n_split, slots
+    per split). Block i of the cluster owns slots [i*per, min(C, i*per +
+    per)); the last range may be short or, for small C, empty. The C entry
+    point decides the launch (``split_geometry`` in the source); this
+    mirrors it for labels and tests only, and must be changed with it."""
+    if C < 1:
+        raise ValueError(f"decode_attention: ring of {C} slots")
+    n_split = min(MAX_SPLIT, C)
+    return n_split, -(-C // n_split)
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -48,7 +66,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: torch.Tensor, *, window: Optional[int] = None,
                      chunk: Optional[int] = None) -> torch.Tensor:
     """q: (B,Hq,d); k/v: (B,Hkv,C,d) ring buffers, any strides with a
-    contiguous last dimension; pos: (B,) int32. Token t lives in slot
+    contiguous last dimension, base pointers and strides in multiples of 16
+    bytes; pos: (B,) int32. Token t lives in slot
     t % C and the current token's K/V must already be at slot pos % C.
     CPU tensors take the plain version, CUDA tensors the kernel."""
     if _build.use_plain("decode_attention", q, k, v, pos):
@@ -67,6 +86,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention: last dimension must be contiguous")
     if pos.shape != (B,) or pos.dtype != torch.int32 or not pos.is_contiguous():
         raise ValueError("decode_attention: pos must be contiguous (B,) int32")
+    _build.check_aligned("decode_attention", q, k, v)
     out = torch.empty((B, Hq, d), dtype=q.dtype, device=q.device)
     lib = _build.load_library()
     err = lib.repro_decode_attention(

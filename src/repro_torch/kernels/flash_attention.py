@@ -2,11 +2,16 @@
 and its plain version.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py``
-(``flash_attention`` / ``_flash_kernel``). At serving shapes the launch and
-the tile loop's latency bound it on the H100; at long S it is
-operation-bound. The kernel takes one block per (b, q head, 64-row q tile),
-streams 64-row K/V tiles through shared memory with an fp32 online softmax,
-skips fully masked tiles and masks a ragged S itself; see the source.
+(``flash_attention`` / ``_flash_kernel``). At serving shapes neither bytes
+nor operations bound it on the H100 (both under a microsecond): the
+latency of each block's tile loop does. In bf16 the kernel packs the G
+query heads of a kv head into one block's 64 rows, so each K/V tile is
+loaded once per group; it brings tiles in with double-buffered 16-byte
+``cp.async`` copies and does both products on the tensor cores
+(``mma.sync`` m16n8k16, fp32 accumulators, P rounded to bf16 in registers
+before P.V), with an fp32 online softmax, masked-tile skipping and a ragged
+S masked in the kernel. fp32 inputs take an fp32 FMA kernel, with no TF32.
+See the source for the design.
 """
 from __future__ import annotations
 
@@ -47,7 +52,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     chunk: Optional[int] = None) -> torch.Tensor:
     """q: (B,Hq,S,d); k/v: (B,Hkv,S,d), any strides with a contiguous last
-    dimension; Hq % Hkv == 0. Returns (B,Hq,S,d); from the kernel it is a
+    dimension, base pointers and strides in multiples of 16 bytes;
+    Hq % Hkv == 0. Returns (B,Hq,S,d); from the kernel it is a
     view of a contiguous (B,S,Hq,d) buffer, so ``.transpose(1, 2)`` gives the
     model's (B,S,Hq*d) layout without a copy. CPU tensors take the plain
     version, CUDA tensors the kernel."""
@@ -67,6 +73,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention: last dimension must be contiguous")
+    _build.check_aligned("flash_attention", q, k, v)
     out = torch.empty((B, S, Hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib = _build.load_library()
     err = lib.repro_flash_attention(

@@ -2,9 +2,11 @@
 
 Prefill runs through ``ops.flash_attention`` and decode through
 ``ops.decode_attention``: on the card these are the hand-written Hopper
-kernels, on the CPU their plain versions. Both keep the softmax weights in
-fp32, where the JAX XLA path casts them to the model dtype before P.V; in
-bf16 the two therefore differ by about one bf16 rounding.
+kernels, on the CPU their plain versions. The JAX XLA path casts the softmax
+weights to the model dtype before P.V. The bf16 prefill kernel does the
+same (its P.V runs on the tensor cores); the decode kernel, the fp32
+prefill kernel and the plain versions keep P in fp32, as the Pallas kernels
+do, so in bf16 they differ from the XLA path by about one bf16 rounding.
 """
 from __future__ import annotations
 

@@ -12,8 +12,11 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.decode_attention import decode_attention_plain
+from repro_torch.kernels.decode_attention import (NEG_INF,
+                                                  decode_attention_plain,
+                                                  split_geometry)
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
 from repro_torch.kernels.rwkv_wkv import wkv_plain
@@ -165,3 +168,102 @@ def test_wrappers_refuse_other_devices():
         tops.rmsnorm(x, torch.empty((64,), device="meta"))
     with pytest.raises(ValueError, match="several devices"):
         tops.rmsnorm(torch.ones(2, 64), torch.empty((64,), device="meta"))
+
+
+def _split_merge(q, k, v, pos, *, window=None, chunk=None):
+    """The decode kernel's rule in plain torch. Split i of the ring holds
+    64-slot tiles; one warp per head keeps a partial (m, l, acc) over every
+    tile of the split that has a visible slot, tiles without one being
+    skipped. Masked slots score -1e30, so a partial of masked slots only has
+    m = -1e30 (and weight 0 below); one with no slot is neutral (m = -1e30,
+    l = 0, acc = 0). The partials merge by e^(m_i - M), M = max m_i, with
+    the l == 0 guard."""
+    B, Hq, d = q.shape
+    _, Hkv, C, _ = k.shape
+    G = Hq // Hkv
+    tile = 64
+    kk = k.repeat_interleave(G, dim=1)
+    vv = v.repeat_interleave(G, dim=1)
+    s = torch.einsum("bhd,bhcd->bhc", q, kk) * (d ** -0.5)
+    j = torch.arange(C)[None, :]
+    p = pos[:, None].long()
+    pslot = p - torch.remainder(p - j, C)
+    ok = pslot >= 0
+    if window is not None:
+        ok &= (p - pslot) < window
+    if chunk is not None:
+        ok &= (torch.div(pslot, chunk, rounding_mode="floor")
+               == torch.div(p, chunk, rounding_mode="floor"))
+    s = torch.where(ok[:, None, :], s, torch.full_like(s, NEG_INF))
+    n_split, per = split_geometry(C)
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        lo, hi = i * per, min(C, i * per + per)
+        off = torch.arange(C) - lo
+        in_split = (off >= 0) & (torch.arange(C) < hi)
+        tile_of = torch.div(off, tile, rounding_mode="floor")
+        tile_seen = torch.zeros((B, C), dtype=torch.bool)
+        for t in range(max(0, -(-(hi - lo) // tile))):
+            in_tile = in_split & (tile_of == t)
+            tile_seen |= in_tile[None] & (ok & in_tile[None]).any(-1, keepdim=True)
+        sm = torch.where(tile_seen[:, None], s, torch.full_like(s, -torch.inf))
+        m = sm.amax(-1).clamp(min=NEG_INF)                                  # (B, Hq)
+        pr = torch.exp(sm - m[..., None])                                   # 0 off split
+        ms.append(m)
+        ls.append(pr.sum(-1))
+        accs.append(torch.einsum("bhc,bhcd->bhd", pr, vv))
+    m_all = torch.stack(ms)
+    w = torch.exp(m_all - m_all.amax(0))
+    den = (w * torch.stack(ls)).sum(0)
+    num = (w[..., None] * torch.stack(accs)).sum(0)
+    return num / torch.where(den == 0, torch.ones_like(den), den)[..., None]
+
+
+@pytest.mark.parametrize("C", [64, 100, 512])
+@pytest.mark.parametrize("pcase", ["pos<C", "pos=C-1", "pos>2C"])
+@pytest.mark.parametrize("mask", ["none", "window", "chunk"])
+def test_decode_split_merge_rule(C, pcase, mask):
+    """Splitting the ring as the kernel does and merging the partials gives
+    the plain version and the JAX reference, fp32 within 3e-5."""
+    kw = {"none": {}, "window": dict(window=48), "chunk": dict(chunk=32)}[mask]
+    pos = {"pos<C": [0, 5, 17, C // 2], "pos=C-1": [C - 1] * 4,
+           "pos>2C": [2 * C + 1, 2 * C + 7, 3 * C + 3, 5 * C]}[pcase]
+    (jq, tq), (jk, tk), (jv, tv) = arrays(11, (4, 12, 64), (4, 4, C, 64),
+                                          (4, 4, C, 64))
+    p = np.asarray(pos, np.int32)
+    out = _split_merge(tq, tk, tv, torch.from_numpy(p), **kw)
+    close(out, jref.ref_decode_attention(jq, jk, jv, jnp.asarray(p), **kw),
+          "float32")
+    np.testing.assert_allclose(
+        out.numpy(), decode_attention_plain(tq, tk, tv, torch.from_numpy(p),
+                                            **kw).numpy(), **tol("float32"))
+
+
+@pytest.mark.parametrize("C,n_split,per", [(1, 1, 1), (8, 8, 1), (100, 8, 13),
+                                           (512, 8, 64)])
+def test_decode_split_geometry(C, n_split, per):
+    """At most 8 splits (the cluster size); the ranges cover the ring once,
+    the last one short where C is not a multiple of n_split."""
+    assert split_geometry(C) == (n_split, per)
+    covered = [j for i in range(n_split) for j in range(i * per, min(C, i * per + per))]
+    assert covered == list(range(C))
+
+
+def test_decode_split_geometry_refuses_empty_ring():
+    with pytest.raises(ValueError, match="ring of 0 slots"):
+        split_geometry(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_check_aligned(dtype):
+    """The model's layouts pass; a view offset by one element, or with a
+    row stride that is not a multiple of 16 bytes, raises."""
+    buf = torch.zeros((2, 16, 4, 65), dtype=dtype)
+    cache = torch.zeros((2, 16, 4 * 64), dtype=dtype)
+    _build.check_aligned("t", cache.view(2, 16, 4, 64).transpose(1, 2),
+                         torch.zeros((2, 16, 12, 64), dtype=dtype).transpose(1, 2),
+                         torch.zeros((1, 7, 64), dtype=dtype)[:, 3])
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        _build.check_aligned("t", buf[..., 1:])
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        _build.check_aligned("t", buf[..., :64])
