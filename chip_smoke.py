@@ -11,18 +11,24 @@ Phases (any failure exits non-zero; nothing is caught):
      paths' shapes and ragged ones: decode rings whose length is not a
      multiple of the split (C = 100) and whose splits are wholly masked or
      empty, windows that end inside a split, prompts whose packed rows cross
-     the S*G edge, S = 512 (the engine's max_len); the WKV kernel also with
-     its state updated in place. A misaligned view must raise and launch
-     nothing. Time kernel, plain version and the library call (CUDA events,
-     median of 50) at the main paths' shapes, and prefill also at S = 512;
+     the S*G edge, S = 512 (the engine's max_len); rmsnorm at d 100 and on
+     views off 16 bytes (its scalar path), its C++ launch geometry equal to
+     kernels/rmsnorm.py's; WKV around its staged chunk of T steps (T - 1,
+     T, T + 1), at S = 512, from a random state and in place, its state
+     bit-identical to the plain version's. A misaligned view of an
+     attention or WKV input must raise and launch nothing. Time kernel,
+     plain version and the library call (CUDA events, median of 50) at the
+     main paths' shapes, prefill also at S = 512, and an empty kernel (the
+     launch floor);
   3. serve two models at full width in bf16, each with random weights from a
      seeded torch.Generator, through ServingEngine(max_batch=4, max_len=512)
      (8 prompts x 32 new tokens) and then one TorchLLM.complete:
      dcache-agent-150m (dense: rmsnorm, prefill and decode attention) and
      rwkv6-7b (ssm: rmsnorm and the WKV kernel). The launch counters are
      reset before each path and must then equal the exact numbers the path
-     implies. Profile a decode step, a prefill and the unembed (held against
-     an fp32 product within 1e-3);
+     implies. Profile a decode step, a prefill (each kernel's device time
+     per launch in them) and the unembed (held against an fp32 product
+     within 1e-3);
   4. for each model, the full-width weights cut to 2 layers, in fp32, on the
      CPU (plain versions) and on the card (kernels): prefill + 8 greedy
      decode steps on 3 prompts; logits within 1e-3 and the same greedy tokens
@@ -60,6 +66,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 PROFILE_ITERS = 10              # calls per profiled step or prefill
+# each wrapper's kernel names in the profiler (a substring of each instance)
+KERNEL_NEEDLES = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "flash_kernel",
+                  "decode_attention": "decode_kernel", "wkv": "wkv_kernel"}
 
 
 def log(*a):
@@ -149,13 +158,21 @@ def check_kernels(errs):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     B, Hq, Hkv, d = 4, 12, 4, 64
+    check_rmsnorm_geometry()
     for dtype in (torch.bfloat16, torch.float32):
+        # d 100 in bf16 is not a multiple of 8: the scalar path
         for rows in (1, 4, 257):
-            for dm in (64, 768, 4096):
+            for dm in (64, 100, 768, 4096):
                 x = randn(gen, rows, dm, dtype=dtype)
                 g = randn(gen, dm, dtype=dtype)
                 compare("rmsnorm", f"rows={rows} d={dm}", ops.rmsnorm(x, g),
                         rmsnorm_plain(x, g), dtype, errs)
+        # contiguous views one element off 16 bytes: the scalar path
+        for rows, dm in ((4, 768), (4, 4096), (257, 64)):
+            x = randn(gen, rows * dm + 1, dtype=dtype)[1:].view(rows, dm)
+            g = randn(gen, dm + 1, dtype=dtype)[1:]
+            compare("rmsnorm", f"rows={rows} d={dm} misaligned view",
+                    ops.rmsnorm(x, g), rmsnorm_plain(x, g), dtype, errs)
         for S in (8, 9, 37, 64, 256, 512):
             # the model's layouts: q (1,S,Hq,d), k/v (1,S,Hkv,d), seen as (B,H,S,d)
             q = randn(gen, 1, S, Hq, d, dtype=dtype).transpose(1, 2)
@@ -196,6 +213,30 @@ def check_kernels(errs):
     check_wkv(errs)
 
 
+def check_rmsnorm_geometry():
+    """The launch geometry the C++ side takes equals kernels/rmsnorm.py's
+    ``geometry``, which the CPU tests check, over served, ragged, wide and
+    misaligned cases."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rmsnorm import geometry
+
+    lib = _build.load_library()
+    res = (ctypes.c_int * 6)()
+    n = 0
+    for rows in (1, 3, 4, 257):
+        for d in (1, 7, 64, 100, 768, 4096, 4100, 16384, 20000):
+            for elem in (2, 4):
+                for aligned in (True, False):
+                    lib.repro_rmsnorm_geometry(rows, d, elem, int(aligned), res)
+                    py = tuple(geometry(rows, d, elem, aligned))
+                    assert tuple(res) == py, (rows, d, elem, aligned, tuple(res), py)
+                    n += 1
+    log(f"  rmsnorm geometry: C++ and Python agree in {n} cases "
+        f"(d 768 bf16: {geometry(4, 768, 2)})")
+
+
 def check_group16(gen, dtype, errs):
     """G = 16 query heads over one kv head: a decode block of 16 warps (one
     per head), and 16 heads packed into a flash tile."""
@@ -220,17 +261,22 @@ def check_group16(gen, dtype, errs):
 
 def check_misaligned(gen, dtype):
     """A view offset by one element must raise before any launch: the
-    attention kernels copy 16-byte rows."""
+    attention and WKV kernels copy 16-byte rows."""
     from repro_torch.kernels import ops
 
     Hq, Hkv, S, d = 12, 4, 64, 64
     q = randn(gen, 1, S, Hq, d + 1, dtype=dtype)[..., 1:].transpose(1, 2)
     k = randn(gen, 1, S, Hkv, d, dtype=dtype).transpose(1, 2)
+    r = randn(gen, 1, S, Hkv, d + 1, dtype=dtype)[..., 1:]
+    rk = randn(gen, 1, S, Hkv, d, dtype=dtype)
+    w = torch.full((1, S, Hkv, d), 0.9, device="cuda")
+    u = randn(gen, Hkv, d, dtype=dtype)
     before = ops.launch_counts()
     for name, call in (
             ("flash_attention", lambda: ops.flash_attention(q, k, k)),
             ("decode_attention", lambda: ops.decode_attention(
-                q[:, :, 0], k, k, torch.zeros(1, dtype=torch.int32, device="cuda")))):
+                q[:, :, 0], k, k, torch.zeros(1, dtype=torch.int32, device="cuda"))),
+            ("wkv", lambda: ops.wkv(r, rk, rk, w, u))):
         try:
             call()
         except ValueError as e:
@@ -251,35 +297,50 @@ def wkv_inputs(gen, B, S, H, hd, dtype):
     return r, k, v, w, u
 
 
+def same_state(case, s, sp):
+    """The kernel's state must equal wkv_plain's bit for bit: both round
+    every product and sum of the update separately, in the same order."""
+    err = (s - sp).abs().max().item()
+    ok = torch.equal(s, sp)
+    log(f"  wkv {case} state: max_abs_err={err:.3e} (must be 0) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"wkv {case}: state differs from wkv_plain")
+
+
 def check_wkv(errs):
-    """The WKV kernel against wkv_plain: prefill shapes from a zero state,
-    the decode shape from a random state, into a new buffer and in place.
-    y is compared in its dtype's tolerance; the state is fp32 whatever the
-    inputs' dtype, so it is held to the fp32 tolerance."""
+    """The WKV kernel against wkv_plain: prefill shapes from a zero state
+    (around the staged chunk of T steps: T - 1, T, T + 1, and S = 512),
+    B = 4 from a random state, and the decode shape from a random state,
+    into a new buffer and in place. y is compared in its dtype's tolerance;
+    the fp32 state must be bit-identical."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.rwkv_wkv import wkv_plain
+    from repro_torch.kernels.rwkv_wkv import CHUNK_STEPS, wkv_plain
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     H, hd = 64, 64
     for dtype in (torch.bfloat16, torch.float32):
-        for S in (1, 7, 48, 64, 130):
+        name = str(dtype)[6:]
+        T = CHUNK_STEPS[dtype]
+        for S in sorted({1, 7, 48, 64, 130, T - 1, T, T + 1, 512}):
             r, k, v, w, u = wkv_inputs(gen, 1, S, H, hd, dtype)
             y, s = ops.wkv(r, k, v, w, u)
             yp, sp = wkv_plain(r, k, v, w, u)
             compare("wkv", f"B=1 S={S} y", y, yp, dtype, errs)
-            compare("wkv", f"B=1 S={S} state", s, sp, torch.float32, errs)
-        r, k, v, w, u = wkv_inputs(gen, 4, 1, H, hd, dtype)
-        s0 = torch.randn((4, H, hd, hd), generator=gen, device="cuda")
-        yp, sp = wkv_plain(r, k, v, w, u, s0)
-        y, s = ops.wkv(r, k, v, w, u, s0=s0)
-        compare("wkv", "B=4 S=1 s0 y", y, yp, dtype, errs)
-        compare("wkv", "B=4 S=1 s0 state", s, sp, torch.float32, errs)
+            same_state(f"B=1 S={S} {name}", s, sp)
+        for S in (48, 1):
+            r, k, v, w, u = wkv_inputs(gen, 4, S, H, hd, dtype)
+            s0 = torch.randn((4, H, hd, hd), generator=gen, device="cuda")
+            yp, sp = wkv_plain(r, k, v, w, u, s0)
+            y, s = ops.wkv(r, k, v, w, u, s0=s0)
+            compare("wkv", f"B=4 S={S} s0 y", y, yp, dtype, errs)
+            same_state(f"B=4 S={S} s0 {name}", s, sp)
+        # the decode step: S = 1, the state updated in place
         state = s0.clone()
         y, s = ops.wkv(r, k, v, w, u, s0=state, state_out=state)
         assert s.data_ptr() == state.data_ptr()
         compare("wkv", "B=4 S=1 s0 in place y", y, yp, dtype, errs)
-        compare("wkv", "B=4 S=1 s0 in place state", state, sp, torch.float32,
-                errs)
+        same_state(f"B=4 S=1 s0 in place {name}", state, sp)
 
 
 def time_kernels():
@@ -383,7 +444,8 @@ def time_kernels():
     # in place) and at a prefill (B=1, S=48, zero state). No single PyTorch
     # call computes this recurrence, so there is no library time.
     H, hd = 64, 64
-    for key, B, S in (("wkv", 4, 1), ("wkv_prefill", 1, 48)):
+    for key, B, S in (("wkv", 4, 1), ("wkv_prefill", 1, 48),
+                      ("wkv_prefill_s512", 1, 512)):
         r, k, v, w, u = wkv_inputs(gen, B, S, H, hd, dt)
         r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
         state = torch.randn((B, H, hd, hd), generator=gen, device="cuda") \
@@ -401,6 +463,15 @@ def time_kernels():
             library_ms=None, library_device_us=None,
             device_us=kernel_device_us(device_profile(run, 20)[0], "wkv_kernel"),
             bound_ms=b, bound_by=by)
+    # the floor under any launch: an empty kernel of one 128-thread block
+    from repro_torch.kernels import _build
+    clib, stream = _build.load_library(), torch.cuda.current_stream().cuda_stream
+    empty = lambda: _build.check(clib.repro_empty(stream), "empty")  # noqa: E731
+    rows["empty_kernel"] = dict(
+        shape="<<<1, 128>>>, no work", ms=time_ms(empty), plain_ms=0.0,
+        library_ms=None, library_device_us=None,
+        device_us=kernel_device_us(device_profile(empty, 20)[0], "empty_kernel"),
+        bound_ms=0.0, bound_by="bytes")
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else (
             f"{r['library_ms']:.4f} ms (device {r['library_device_us']:.2f} us)")
@@ -527,11 +598,16 @@ def serve_full_width(arch):
                     for k, v in ops.launch_counts().items() if v}
         dev_us = sum(per_call.values())
         top = sorted(per_call.items(), key=lambda kv: -kv[1])[:6]
+        # each kernel's device time per launch inside the step or prefill
+        in_step = {n: kernel_device_us(per_call, KERNEL_NEEDLES[n]) / c
+                   for n, c in launches.items()}
         log(f"  profile {what}: host wall {wall_us / 1e3:.3f} ms/call, device "
             f"{dev_us / 1e3:.3f} ms/call, device busy {100 * busy:.1f}%; "
-            f"kernel launches/call {launches}; top: "
+            f"kernel launches/call {launches}; device us per launch "
+            + ", ".join(f"{n} {t:.2f}" for n, t in in_step.items()) + "; top: "
             + "; ".join(f"{k[:48]} {t:.1f} us" for k, t in top))
         key = "decode" if what.startswith("decode") else "prefill"
+        m[f"{key}_per_launch_us"] = in_step
         m[f"{key}_wall_ms"] = wall_us / 1e3
         m[f"{key}_device_ms"] = dev_us / 1e3
         m[f"{key}_busy"] = busy

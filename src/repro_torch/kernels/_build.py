@@ -41,6 +41,8 @@ SIGNATURES: Dict[str, List] = {
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_I, _I, _I, _F, _I, _P],
     "repro_wkv": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I, _P],
+    "repro_rmsnorm_geometry": [_I, _I, _I, _I, ctypes.POINTER(_I)],
+    "repro_empty": [_P],
 }
 
 # what the last build printed (ptxas register/shared-memory report) and took
@@ -110,7 +112,9 @@ def load_library(csrc: Path = CSRC) -> ctypes.CDLL:
     every entry point's ``argtypes`` set."""
     lib = ctypes.CDLL(str(build(csrc)))
     for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = getattr(lib, name, None)
+        if fn is None:  # an older tree (kernel_ab.py) lacks the newer helpers
+            continue
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
@@ -151,7 +155,7 @@ def dtype_code(name: str, *tensors: torch.Tensor) -> int:
 def check_aligned(name: str, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor's base pointer and every stride but the
     last (of dimensions longer than 1) are multiples of 16 bytes: the
-    attention kernels copy rows with 16-byte vector loads."""
+    attention and WKV kernels copy rows with 16-byte vector loads."""
     for t in tensors:
         es = t.element_size()
         bad = [s for n, s in zip(t.shape[:-1], t.stride()[:-1])

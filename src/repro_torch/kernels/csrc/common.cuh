@@ -131,3 +131,13 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+// 16 bytes of T from floats (8 bf16 rounded to nearest even, or 4 fp32).
+__device__ __forceinline__ uint4 pack16(const float* f, float) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint4 pack16(const float* f, __nv_bfloat16) {
+  return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                    pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+}

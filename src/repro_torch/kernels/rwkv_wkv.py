@@ -8,8 +8,12 @@ Replaces the TPU kernel ``repro/kernels/rwkv_wkv.py`` (``wkv`` /
 
 At a decode step bytes bound it on the H100 (the fp32 state is read and
 written once); at prefill the sequential time loop's latency does. The
-kernel takes one block per (b, h), keeps the state in registers (thread j
-holds column j) and loops over time inside the block; see the source.
+kernel splits each (b, h) over ``COL_BLOCKS`` blocks of columns and each
+column over ``ROW_LANES`` lanes of rows, keeps the state in registers, and
+stages r/k/w/v ``CHUNK_STEPS`` time steps at a time in shared memory, one
+chunk in flight while the previous one is computed. A decode step (S = 1)
+takes a kernel of its own that loads straight into registers; see the
+source.
 
 The interface is the model's (``repro.models.rwkv.wkv_scan``), not the TPU
 kernel's: r/k/v/w are (B,S,H,hd), of which the TPU kernel's (B,H,S,hd) is a
@@ -24,6 +28,11 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (64,)  # the registry's WKV head dims; each one is built and checked
+# The kernel's partition (csrc/rwkv_wkv.cu decides it; the tests replay it):
+COL_BLOCKS = 4     # blocks per (b, h), 16 state columns each
+ROW_LANES = 4      # lanes per column, 16 state rows each
+# time steps staged at a time at a prefill (a decode step, S = 1, stages none)
+CHUNK_STEPS = {torch.bfloat16: 32, torch.float32: 16}
 
 
 def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,7 +61,8 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         state_out: Optional[torch.Tensor] = None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r/k/v: (B,S,H,hd) in the model dtype and w: (B,S,H,hd) fp32, any
-    strides with a contiguous last dimension; u: (H,hd) in the model dtype;
+    16-byte aligned strides with a contiguous last dimension (on the card);
+    u: (H,hd) in the model dtype, 16-byte aligned;
     s0: (B,H,hd,hd) fp32 or None (zeros). Returns (y (B,S,H,hd) in r's
     dtype, final state fp32). The final state is written to ``state_out``
     when given, which may be ``s0`` itself (an in-place update). CPU tensors
@@ -78,6 +88,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                          f"{tuple(u.shape)}")
     if any(t.stride(-1) != 1 for t in (r, k, v, w)):
         raise ValueError("wkv: last dimension must be contiguous")
+    _build.check_aligned("wkv", r, k, v, w, u)  # rows move 16 bytes at a time
     for name, t in (("s0", s0), ("state_out", state_out)):
         if t is not None and (t.shape != (B, H, hd, hd)
                               or t.dtype != torch.float32

@@ -18,7 +18,7 @@ from repro_torch.kernels.decode_attention import (NEG_INF,
                                                   decode_attention_plain,
                                                   split_geometry)
 from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.kernels.rmsnorm import rmsnorm_plain
+from repro_torch.kernels.rmsnorm import MAX_LANES, geometry, rmsnorm_plain
 from repro_torch.kernels.rwkv_wkv import wkv_plain
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -139,6 +139,67 @@ def test_rmsnorm_plain_vs_pallas(shape, dtype):
 def test_rmsnorm_plain_ragged_vs_ref(rows, d, dtype):
     (jx, tx), (jg, tg) = arrays(9, (rows, d), (d,), dtype=dtype)
     close(rmsnorm_plain(tx, tg), jref.ref_rmsnorm(jx, jg), dtype)
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 64), (4, 1, 768), (4, 1, 4096),
+                                   (4, 1, 64, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_vs_pallas_served_widths(shape, dtype):
+    """The served widths: d 64 (the rwkv per-head norm), 768 (dense), 4096
+    (rwkv), at a decode step's 4 rows."""
+    (jx, tx), (jg, tg) = arrays(11, shape, (shape[-1],), dtype=dtype)
+    close(rmsnorm_plain(tx, tg), jops.rmsnorm(jx, jg), dtype)
+
+
+def _rmsnorm_coverage(rows, d, geo):
+    """How often the kernel's threads touch each element of a (rows, d) x:
+    thread t of block b takes row b * rows_per_block + t // lanes and the
+    loads lane, lane + lanes, ... of it (lane = t % lanes), each vec wide."""
+    count = np.zeros((rows, d), np.int64)
+    t = np.arange(geo.blocks * geo.threads)
+    row = (t // geo.threads) * geo.rows_per_block + (t % geo.threads) // geo.lanes
+    lane = t % geo.lanes
+    for i in range(geo.loads):
+        c = lane + i * geo.lanes
+        live = (row < rows) & (c < d // geo.vec)
+        for e in range(geo.vec):
+            np.add.at(count, (row[live], c[live] * geo.vec + e), 1)
+    return count
+
+
+@pytest.mark.parametrize("d", [64, 100, 768, 4096])
+@pytest.mark.parametrize("rows", [1, 3, 4, 257])
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_rmsnorm_geometry(d, rows, elem, aligned):
+    """Every element of every row is loaded by exactly one lane; a block is
+    128 threads (one row of more lanes); a d that is not a multiple of 16
+    bytes, or a pointer off 16 bytes, takes the scalar path."""
+    geo = geometry(rows, d, elem, aligned)
+    assert (_rmsnorm_coverage(rows, d, geo) == 1).all()
+    vector = aligned and d % (16 // elem) == 0
+    assert geo.vec == (16 // elem if vector else 1)
+    assert geo.lanes & (geo.lanes - 1) == 0 and geo.lanes <= MAX_LANES
+    assert 1 <= geo.loads <= (4 if vector else 16)
+    assert geo.threads == geo.rows_per_block * geo.lanes == max(128, geo.lanes)
+    assert geo.blocks == -(-rows // geo.rows_per_block)
+
+
+@pytest.mark.parametrize("d,lanes,loads,rows_per_block", [
+    (64, 8, 1, 16), (768, 32, 3, 4), (4096, 128, 4, 1)])
+def test_rmsnorm_geometry_served_bf16(d, lanes, loads, rows_per_block):
+    """bf16 at the served widths: 8 lanes a row of 64, a warp a row of 768,
+    4 warps a row of 4096; 16-byte loads."""
+    geo = geometry(4, d, 2)
+    assert (geo.vec, geo.lanes, geo.loads, geo.rows_per_block) == (
+        8, lanes, loads, rows_per_block)
+
+
+def test_rmsnorm_geometry_refuses_rows_too_wide():
+    assert geometry(1, 8192, 2, aligned=False).loads == 16
+    assert geometry(1, 8193, 2, aligned=False).loads == 0
+    assert geometry(1, 16384, 2).loads == 4
+    assert geometry(1, 16384 + 8, 2).loads == 0
 
 
 def test_wrappers_on_cpu_take_plain_and_count_nothing():

@@ -33,7 +33,8 @@ from repro.models import rwkv as jrwkv
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import alloc_cache, get_config
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.rwkv_wkv import wkv_plain
+from repro_torch.kernels.rwkv_wkv import (COL_BLOCKS, ROW_LANES,
+                                          wkv_plain)
 from repro_torch.models import model as tmodel
 from repro_torch.models import rwkv as trwkv
 
@@ -160,6 +161,72 @@ def test_wkv_wrapper_on_cpu_takes_plain_and_updates_state_in_place():
     y0, _ = tops.wkv(r, k, v, w, u)
     assert torch.equal(y0, wkv_plain(r, k, v, w, u)[0])
     assert tops.launch_counts()["wkv"] == 0
+
+
+def _wkv_partition(r, k, v, w, u, s0, T):
+    """csrc/rwkv_wkv.cu's schedule in plain torch (fp32). Each of COL_BLOCKS
+    blocks owns 16 state columns; each of ROW_LANES lanes of a column keeps
+    16 state rows. Time runs over staged chunks of T steps, the last one
+    ragged. Each lane sums its partial of y_t over its rows in order, and
+    y_t = (p0 + p1) + (p2 + p3), as the two xor shuffles add them. The state
+    update is wkv_plain's, element by element. The decode kernel (S = 1)
+    cuts the columns otherwise (2 blocks of 32) but keeps the row lanes and
+    the order of y's sum, so this replays it too."""
+    B, S, H, hd = r.shape
+    nc, nr = hd // COL_BLOCKS, hd // ROW_LANES
+    state = torch.zeros((B, H, hd, hd)) if s0 is None else s0.clone()
+    y = torch.full((B, S, H, hd), float("nan"))
+    uf = u.float()[None]
+    for cb in range(COL_BLOCKS):
+        cols = slice(cb * nc, (cb + 1) * nc)
+        lanes = [slice(q * nr, (q + 1) * nr) for q in range(ROW_LANES)]
+        st = [state[:, :, rows, cols].clone() for rows in lanes]
+        for t0 in range(0, S, T):
+            rc, kc, wc = (x[:, t0:t0 + T].float() for x in (r, k, w))
+            vc = v[:, t0:t0 + T, :, cols].float()
+            for t in range(rc.shape[1]):
+                parts = []
+                for q, rows in enumerate(lanes):
+                    kv = kc[:, t, :, rows, None] * vc[:, t, :, None, :]
+                    term = rc[:, t, :, rows, None] * (st[q] + uf[:, :, rows, None] * kv)
+                    acc = torch.zeros((B, H, nc))
+                    for i in range(nr):
+                        acc = acc + term[:, :, i]
+                    parts.append(acc)
+                    st[q] = wc[:, t, :, rows, None] * st[q] + kv
+                y[:, t0 + t, :, cols] = (parts[0] + parts[1]) + (parts[2] + parts[3])
+        for rows, s_q in zip(lanes, st):
+            state[:, :, rows, cols] = s_q
+    return y, state
+
+
+@pytest.mark.parametrize("T,S", [(32, 1), (32, 31), (32, 33), (32, 37),
+                                 (16, 1), (16, 15), (16, 17), (16, 37)])
+@pytest.mark.parametrize("s0", ["zero", "random"])
+def test_wkv_partition_replay(T, S, s0):
+    """The kernel's partition (4 column blocks, 4 row lanes a column, chunks
+    of T = 32 (bf16) or 16 (fp32) with a ragged tail) against wkv_plain
+    (y within 3e-5, the state bit for bit) and against JAX: the Pallas
+    kernel in interpret mode from a zero state, wkv_scan from a random one."""
+    B, H, hd = 2, 2, 64
+    r, k, v, w, u = wkv_inputs(5, B, S, H, hd)
+    s0_np = (None if s0 == "zero" else
+             np.random.default_rng(6).normal(0, 1, (B, H, hd, hd)).astype(np.float32))
+    s0_t = None if s0_np is None else t(s0_np)
+    y, s = _wkv_partition(t(r), t(k), t(v), t(w), t(u), s0_t, T)
+    yp, sp = wkv_plain(t(r), t(k), t(v), t(w), t(u), s0_t)
+    tol = dict(atol=3e-5, rtol=3e-5)
+    np.testing.assert_allclose(f32(y), f32(yp), **tol)
+    assert torch.equal(s, sp)
+    if s0_np is None:
+        yg, sg = jops.wkv(bhsd(r), bhsd(k), bhsd(v), bhsd(w), jnp.asarray(u),
+                          chunk=S)
+        yg = np.swapaxes(np.asarray(yg), 1, 2)
+    else:
+        yg, sg = jrwkv.wkv_scan(*(jnp.asarray(a) for a in (r, k, v, w, u)),
+                                jnp.asarray(s0_np), chunk=8)
+    np.testing.assert_allclose(f32(y), f32(yg), **tol)
+    np.testing.assert_allclose(f32(s), f32(sg), **tol)
 
 
 # ---------------------------------------------------------------------------
