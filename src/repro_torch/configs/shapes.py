@@ -24,15 +24,17 @@ def alloc_cache(cfg: ModelConfig, batch: int, seq_len: int,
     """Zeroed decode cache, laid out as ``cache_specs`` lays it out.
 
     Every family has ``pos`` (B,) int32. The dense family adds layer-stacked
-    ring buffers ``k``/``v`` (L, B, C, KV*hd) in the model dtype; the ssm
+    ring buffers ``k``/``v`` (L, B, C, KV*hd) in the model dtype, or, with
+    ``cfg.kv_quant``, in int8 beside per-token-per-head scales
+    ``k_scale``/``v_scale`` (L, B, C, KV) in the model dtype (0 in an empty
+    slot; a prefilled pad slot gets 1.0 from ``quantize_kv``). The ssm
     family (rwkv6) adds the WKV state ``ssm_state`` (L, B, H, hd, hd) in
     fp32 and the token-shift states ``shift_tm``/``shift_cm`` (L, B, D) in
     the model dtype.
     """
-    if cfg.family not in ("dense", "ssm") or cfg.kv_quant:
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
-            f"cache for family {cfg.family!r} (kv_quant={cfg.kv_quant}) is "
-            "not ported yet")
+            f"cache for family {cfg.family!r} is not ported yet")
     L, dt = cfg.n_layers, cfg.torch_dtype
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if cfg.family == "ssm":
@@ -45,6 +47,11 @@ def alloc_cache(cfg: ModelConfig, batch: int, seq_len: int,
         return cache
     C = effective_cache_len(cfg, seq_len)
     shape = (L, batch, C, cfg.n_kv_heads * cfg.head_dim_)
-    cache["k"] = torch.zeros(shape, dtype=dt, device=device)
-    cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+    kv_dt = torch.int8 if cfg.kv_quant else dt
+    cache["k"] = torch.zeros(shape, dtype=kv_dt, device=device)
+    cache["v"] = torch.zeros(shape, dtype=kv_dt, device=device)
+    if cfg.kv_quant:
+        for k in ("k_scale", "v_scale"):
+            cache[k] = torch.zeros((L, batch, C, cfg.n_kv_heads), dtype=dt,
+                                   device=device)
     return cache

@@ -38,6 +38,8 @@ SIGNATURES: Dict[str, List] = {
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
     "repro_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 8 + [_I, _I, _F, _I, _P],
+    "repro_decode_attention_int8": [_P] * 7 + [_I] * 5 + [_L] * 14
+    + [_I, _I, _F, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_I, _I, _I, _F, _I, _P],
     "repro_wkv": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I, _P],

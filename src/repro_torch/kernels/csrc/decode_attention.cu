@@ -45,6 +45,22 @@
 //   from its own shared memory. No second (combine) launch.
 // fp32 inputs take the same design with 4-byte elements; the tensor cores
 // play no part (G = 3 query rows are too few for an mma tile).
+//
+// The int8 variant (decode_int8_kernel, repro_decode_attention_int8) serves
+// the int8 KV cache of cfg.kv_quant. It has no Pallas counterpart: it
+// replaces the XLA chain dequantize_kv + masked softmax attention of
+// src/repro/models/attention.py:decode_attend. Same grid, cluster, masks,
+// tile skipping and merge; what differs is the tile:
+// - a 64-wide head row of codes is 64 bytes, four 16-byte cp.async copies
+//   (half the bf16 bytes), into 80-byte padded shared-memory rows;
+// - the scales (one per slot and kv head, in q's type, strided by Hkv
+//   elements) are too narrow for cp.async: each thread loads its slots'
+//   scales of the next tile into registers when it issues that tile's
+//   copies and stores them to shared memory after computing the current
+//   tile, so the load's latency hides behind the compute;
+// - each element is dequantized when it is read from shared memory, as
+//   dequantize_kv does it: float(code) * float(scale), rounded to q's type
+//   (bf16 round to nearest even) before it enters q.k or P.V in fp32.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -77,6 +93,62 @@ __device__ __forceinline__ bool slot_visible(int j, int p_now, int C, int window
   return ok;
 }
 
+// block-uniform: does the tile of slots [j0, min(hi, j0 + kTile)) hold a
+// visible slot? (one barrier)
+__device__ __forceinline__ bool tile_visible(int j0, int hi, int p_now, int C,
+                                             int window, int chunk) {
+  int any = 0;
+  for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
+    const int j = j0 + i;
+    if (j < hi && slot_visible(j, p_now, C, window, chunk)) any = 1;
+  }
+  return __syncthreads_or(any) != 0;
+}
+
+// Every block of the cluster has started (each arrived on the cluster
+// barrier at entry): push this warp's partial (acc over columns 2*lane and
+// 2*lane + 1, m, l) into rank 0's shared memory `part` ([n_split][G][D + 2]);
+// cluster.sync() releases it there, and no block reads another's after.
+// Rank 0 then merges the partials of head g into orow.
+template <typename T, int D>
+__device__ __forceinline__ void merge_partials(float* part, int split, int G,
+                                               int g, int lane, float m, float l,
+                                               float acc0, float acc1, T* orow) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_wait();
+  float* mine = cluster.map_shared_rank(part, 0) + (split * G + g) * (D + 2);
+  mine[2 * lane] = acc0;
+  mine[2 * lane + 1] = acc1;
+  if (lane == 0) {
+    mine[D] = m;
+    mine[D + 1] = l;
+  }
+  cluster.sync();
+  if (split != 0) return;
+  // partial split*G + g; a fixed trip count lets every load issue
+  const int n_part = gridDim.x;
+  float mj[kMaxSplit];
+  float M = REPRO_NEG_INF;
+#pragma unroll
+  for (int j = 0; j < kMaxSplit; ++j) {
+    mj[j] = j < n_part ? part[(j * G + g) * (D + 2) + D] : REPRO_NEG_INF;
+    M = fmaxf(M, mj[j]);
+  }
+  float num0 = 0.f, num1 = 0.f, den = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxSplit; ++j) {
+    if (j < n_part) {
+      const float* pr = part + (j * G + g) * (D + 2);
+      const float wt = expf(mj[j] - M);
+      den += wt * pr[D + 1];
+      num0 += wt * pr[2 * lane];
+      num1 += wt * pr[2 * lane + 1];
+    }
+  }
+  den = (den == 0.f) ? 1.f : den;
+  store2(orow + 2 * lane, num0 / den, num1 / den);
+}
+
 // one warp per query head: up to 1024 threads (G = 32)
 template <typename T, int D>
 __global__ void __launch_bounds__(1024)
@@ -99,7 +171,6 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* part = reinterpret_cast<float*>(Qs + G * D);
 
   cluster_arrive_relaxed();   // this block has started (see the merge)
-  cg::cluster_group cluster = cg::this_cluster();
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int g = tid / 32, lane = tid % 32;  // warp g: head g of the group
@@ -110,17 +181,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kbase = k + b * kb + h * kh;
   const T* vbase = v + b * vb + h * vh;
 
-  // block-uniform: does tile t hold a visible slot? (one barrier)
-  auto tile_visible = [&](int t) -> bool {
-    int any = 0;
-    for (int i = tid; i < kTile; i += nthreads) {
-      const int j = lo + t * kTile + i;
-      if (j < hi && slot_visible(j, p_now, C, window, chunk)) any = 1;
-    }
-    return __syncthreads_or(any) != 0;
-  };
   auto next_tile = [&](int t) -> int {
-    while (t < n_tiles && !tile_visible(t)) ++t;
+    while (t < n_tiles &&
+           !tile_visible(lo + t * kTile, hi, p_now, C, window, chunk))
+      ++t;
     return t;
   };
   auto issue = [&](int t, int stage) {
@@ -213,42 +277,199 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     stage ^= 1;
   }
 
-  // every block of the cluster has started: push this warp's partial into
-  // rank 0's shared memory; cluster.sync() releases it there, and no block
-  // reads another's after
-  cluster_wait();
-  float* mine = cluster.map_shared_rank(part, 0) + (split * G + g) * (D + 2);
-  mine[2 * lane] = acc0;
-  mine[2 * lane + 1] = acc1;
-  if (lane == 0) {
-    mine[D] = m;
-    mine[D + 1] = l;
-  }
-  cluster.sync();
-  if (split != 0) return;
-  // partial split*G + g; a fixed trip count lets every load issue
-  const int n_part = gridDim.x;
-  float mj[kMaxSplit];
-  float M = REPRO_NEG_INF;
-#pragma unroll
-  for (int j = 0; j < kMaxSplit; ++j) {
-    mj[j] = j < n_part ? part[(j * G + g) * (D + 2) + D] : REPRO_NEG_INF;
-    M = fmaxf(M, mj[j]);
-  }
-  float num0 = 0.f, num1 = 0.f, den = 0.f;
-#pragma unroll
-  for (int j = 0; j < kMaxSplit; ++j) {
-    if (j < n_part) {
-      const float* pr = part + (j * G + g) * (D + 2);
-      const float wt = expf(mj[j] - M);
-      den += wt * pr[D + 1];
-      num0 += wt * pr[2 * lane];
-      num1 += wt * pr[2 * lane + 1];
+  merge_partials<T, D>(part, split, G, g, lane, m, l, acc0, acc1,
+                       out + ((int64_t)b * Hkv * G + (int64_t)h * G + g) * D);
+}
+
+// A 16-byte chunk of codes is four 32-bit words; code e of word w, sign
+// extended.
+__device__ __forceinline__ int code_at(uint32_t w, int e) {
+  return static_cast<int>(w << (24 - 8 * e)) >> 24;
+}
+
+// an element as dequantize_kv gives it: float(code) * float(scale), cast to T
+template <typename T>
+__device__ __forceinline__ float dequant(int code, float s) {
+  return to_f32(from_f32<T>(static_cast<float>(code) * s));
+}
+
+// The int8 variant: k/v are int8 codes, ks/vs the per-slot-per-kv-head
+// scales in T (strides in elements). One warp per query head, as above.
+template <typename T, int D>
+__global__ void __launch_bounds__(1024)
+decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
+                   const int8_t* __restrict__ v, const T* __restrict__ ks,
+                   const T* __restrict__ vs, const int* __restrict__ pos,
+                   T* __restrict__ out, int Hkv, int C, int G, int per,
+                   int64_t qb, int64_t qh, int64_t kb, int64_t kh, int64_t kc,
+                   int64_t vb, int64_t vh, int64_t vc, int64_t ksb, int64_t ksh,
+                   int64_t ksc, int64_t vsb, int64_t vsh, int64_t vsc,
+                   int window, int chunk, float scale) {
+  static_assert(D == 64, "one lane owns two of the 64 output columns");
+  constexpr int kVec = 16 / sizeof(T);      // q elements per 16-byte copy
+  constexpr int kRow = D + 16;              // padded shared-memory row, bytes
+  constexpr int kChunks = D / 16;           // 16-byte copies (16 codes) per row
+  constexpr int kSL = kTile / 32;           // slots of a tile per lane
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int8_t* KV = reinterpret_cast<int8_t*>(smem_raw);  // [2][K, V][kTile][kRow]
+  float* SC = reinterpret_cast<float*>(KV + 4 * kTile * kRow);  // [2][K, V][kTile]
+  T* Qs = reinterpret_cast<T*>(SC + 4 * kTile);                 // [G][D]
+  float* part = reinterpret_cast<float*>(Qs + G * D);  // [n_split][G][D + 2]
+
+  cluster_arrive_relaxed();   // this block has started (see the merge)
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int g = tid / 32, lane = tid % 32;
+  const int p_now = pos[b];
+  const int lo = split * per, hi = min(C, lo + per);
+  const int n_tiles = hi > lo ? (hi - lo + kTile - 1) / kTile : 0;
+
+  const int8_t* kbase = k + b * kb + h * kh;
+  const int8_t* vbase = v + b * vb + h * vh;
+  const T* ksbase = ks + b * ksb + h * ksh;
+  const T* vsbase = vs + b * vsb + h * vsh;
+
+  auto next_tile = [&](int t) -> int {
+    while (t < n_tiles &&
+           !tile_visible(lo + t * kTile, hi, p_now, C, window, chunk))
+      ++t;
+    return t;
+  };
+  auto issue = [&](int t, int stage) {
+    int8_t* kst = KV + stage * 2 * kTile * kRow;
+    int8_t* vst = kst + kTile * kRow;
+    const int j0 = lo + t * kTile;
+    for (int i = tid; i < kTile * kChunks; i += nthreads) {
+      const int jj = i / kChunks, c = i % kChunks;
+      const int j = j0 + jj;
+      const bool ok = j < hi;
+      const int js = ok ? j : lo;
+      cp_async16(kst + jj * kRow + c * 16, kbase + js * kc + c * 16, ok);
+      cp_async16(vst + jj * kRow + c * 16, vbase + js * vc + c * 16, ok);
     }
+  };
+  // this thread's scales of a tile (slots tid and tid + nthreads; two cover
+  // the tile when G = 1), 0 past the range
+  float ksr[2], vsr[2];
+  auto load_scales = [&](int t) {
+    const int j0 = lo + t * kTile;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = tid + r * nthreads, j = j0 + i;
+      const bool ok = i < kTile && j < hi;
+      ksr[r] = ok ? to_f32(ksbase[j * ksc]) : 0.f;
+      vsr[r] = ok ? to_f32(vsbase[j * vsc]) : 0.f;
+    }
+  };
+  auto store_scales = [&](int stage) {
+    float* kss = SC + stage * 2 * kTile;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = tid + r * nthreads;
+      if (i < kTile) {
+        kss[i] = ksr[r];
+        kss[kTile + i] = vsr[r];
+      }
+    }
+  };
+
+  float m = REPRO_NEG_INF, l = 0.f, acc0 = 0.f, acc1 = 0.f;
+  int t = next_tile(0);
+  if (t < n_tiles) {   // q of the group travels with the first tile
+    issue(t, 0);
+    for (int i = tid; i < G * (D / kVec); i += nthreads)
+      cp_async16(Qs + i * kVec, q + b * qb + (h * G + i / (D / kVec)) * qh
+                                    + (i % (D / kVec)) * kVec, true);
+    load_scales(t);
+    store_scales(0);
   }
-  den = (den == 0.f) ? 1.f : den;
-  T* orow = out + ((int64_t)b * Hkv * G + (int64_t)h * G + g) * D;
-  store2(orow + 2 * lane, num0 / den, num1 / den);
+  cp_async_commit();
+  int stage = 0;
+  while (t < n_tiles) {
+    const int nt = next_tile(t + 1);
+    if (nt < n_tiles) {
+      issue(nt, stage ^ 1);
+      load_scales(nt);                 // stored after this tile's compute
+    }
+    cp_async_commit();
+    cp_async_wait<1>();                // tile t has landed
+    __syncthreads();                   // for every thread; Qs and scales too
+
+    const int8_t* kst = KV + stage * 2 * kTile * kRow;
+    const int8_t* vst = kst + kTile * kRow;
+    const float* kss = SC + stage * 2 * kTile;
+    const float* vss = kss + kTile;
+    const T* qg = Qs + g * D;
+    const int j0 = lo + t * kTile;
+    const int n_mine = min(kTile, hi - j0);              // slots in range
+    float s[kSL];
+    float m_tile = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kSL; ++i) {
+      const int jj = lane + 32 * i, j = j0 + jj;
+      float val = -INFINITY;   // past the range: excluded entirely
+      if (jj < n_mine) {
+        const int8_t* kr = kst + jj * kRow;
+        const float sk = kss[jj];
+        float dot0 = 0.f, dot1 = 0.f;   // two chains of FMAs
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          const uint4 u = *reinterpret_cast<const uint4*>(kr + c * 16);
+          const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int qq = 0; qq < 16 / kVec; ++qq) {
+            float qf[kVec];
+            unpack16(*reinterpret_cast<const uint4*>(qg + c * 16 + qq * kVec),
+                     qf, T());
+#pragma unroll
+            for (int e = 0; e < kVec; e += 2) {
+              const int n = qq * kVec + e;   // code n and n + 1 of the chunk
+              dot0 = fmaf(qf[e], dequant<T>(code_at(w[n / 4], n % 4), sk), dot0);
+              dot1 = fmaf(qf[e + 1],
+                          dequant<T>(code_at(w[(n + 1) / 4], (n + 1) % 4), sk),
+                          dot1);
+            }
+          }
+        }
+        val = slot_visible(j, p_now, C, window, chunk) ? (dot0 + dot1) * scale
+                                                       : REPRO_NEG_INF;
+      }
+      s[i] = val;
+      m_tile = fmaxf(m_tile, val);
+    }
+    const float m_new = fmaxf(m, warp_max(m_tile));
+    float psum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSL; ++i) {
+      s[i] = (lane + 32 * i < n_mine) ? expf(s[i] - m_new) : 0.f;
+      psum += s[i];
+    }
+    const float alpha = expf(m - m_new);
+    l = l * alpha + warp_sum(psum);
+    m = m_new;
+    acc0 *= alpha;
+    acc1 *= alpha;
+#pragma unroll
+    for (int i = 0; i < kSL; ++i) {
+      const int n_i = min(32, n_mine - 32 * i);   // warp-uniform
+#pragma unroll 8
+      for (int jj = 0; jj < n_i; ++jj) {
+        const int slot = 32 * i + jj;
+        const float p = __shfl_sync(0xffffffffu, s[i], jj);
+        const float sv = vss[slot];
+        const uint32_t two =
+            *reinterpret_cast<const uint16_t*>(vst + slot * kRow + 2 * lane);
+        acc0 += p * dequant<T>(code_at(two, 0), sv);
+        acc1 += p * dequant<T>(code_at(two, 1), sv);
+      }
+    }
+    if (nt < n_tiles) store_scales(stage ^ 1);   // its readers passed the
+    __syncthreads();   // last barrier; the stage is consumed before refilled
+    t = nt;
+    stage ^= 1;
+  }
+  merge_partials<T, D>(part, split, G, g, lane, m, l, acc0, acc1,
+                       out + ((int64_t)b * Hkv * G + (int64_t)h * G + g) * D);
 }
 
 // n_split and slots per split for a ring of C slots. This decides the
@@ -259,14 +480,12 @@ void split_geometry(int C, int* n_split, int* per) {
   *per = (C + *n_split - 1) / *n_split;
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const int* pos, void* out,
-           int B, int Hkv, int C, int G, const int64_t* st, int window,
-           int chunk, float scale, cudaStream_t s) {
-  constexpr int kRow = D + 16 / sizeof(T);
-  const size_t smem =
-      sizeof(T) * (4 * kTile * kRow + G * D) + sizeof(float) * kMaxSplit * G * (D + 2);
-  auto kern = decode_kernel<T, D>;
+// Launch `go(cfg, per)` on the grid (n_split, Hkv, B) with clusters of the
+// n_split blocks of one (b, kv head) and `smem` bytes of dynamic shared
+// memory for `kern`.
+template <typename Go>
+int launch_clusters(const void* kern, size_t smem, int B, int Hkv, int C, int G,
+                    cudaStream_t s, Go&& go) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -284,11 +503,48 @@ int launch(const void* q, const void* k, const void* v, const int* pos, void* ou
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k, (const T*)v, pos,
-                         (T*)out, Hkv, C, G, per, st[0], st[1], st[2], st[3],
-                         st[4], st[5], st[6], st[7], window, chunk, scale);
+  e = go(cfg, per);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const int* pos, void* out,
+           int B, int Hkv, int C, int G, const int64_t* st, int window,
+           int chunk, float scale, cudaStream_t s) {
+  constexpr int kRow = D + 16 / sizeof(T);
+  const size_t smem =
+      sizeof(T) * (4 * kTile * kRow + G * D) + sizeof(float) * kMaxSplit * G * (D + 2);
+  auto kern = decode_kernel<T, D>;
+  return launch_clusters(
+      (const void*)kern, smem, B, Hkv, C, G, s,
+      [&](const cudaLaunchConfig_t& cfg, int per) {
+        return cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k,
+                                  (const T*)v, pos, (T*)out, Hkv, C, G, per,
+                                  st[0], st[1], st[2], st[3], st[4], st[5],
+                                  st[6], st[7], window, chunk, scale);
+      });
+}
+
+template <typename T, int D>
+int launch_int8(const void* q, const void* k, const void* v, const void* ks,
+                const void* vs, const int* pos, void* out, int B, int Hkv, int C,
+                int G, const int64_t* st, int window, int chunk, float scale,
+                cudaStream_t s) {
+  constexpr int kRow = D + 16;
+  const size_t smem = 4 * kTile * kRow + sizeof(float) * 4 * kTile
+                      + sizeof(T) * G * D + sizeof(float) * kMaxSplit * G * (D + 2);
+  auto kern = decode_int8_kernel<T, D>;
+  return launch_clusters(
+      (const void*)kern, smem, B, Hkv, C, G, s,
+      [&](const cudaLaunchConfig_t& cfg, int per) {
+        return cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const int8_t*)k,
+                                  (const int8_t*)v, (const T*)ks, (const T*)vs,
+                                  pos, (T*)out, Hkv, C, G, per, st[0], st[1],
+                                  st[2], st[3], st[4], st[5], st[6], st[7],
+                                  st[8], st[9], st[10], st[11], st[12], st[13],
+                                  window, chunk, scale);
+      });
 }
 
 template <typename T>
@@ -323,4 +579,28 @@ extern "C" int repro_decode_attention(const void* q, const void* k, const void* 
                              window, chunk, scale, s);
   return dispatch_d<__nv_bfloat16>(d, q, k, v, (const int*)pos, out, B, Hkv, C, G,
                                    st, window, chunk, scale, s);
+}
+
+// The int8 variant. k/v: int8 codes with the strides of repro_decode_attention
+// (in elements, which are bytes here); k_scale/v_scale: (B, Hkv, C) in q's
+// type (dtype), strides ks_b, ks_h, ks_c and vs_b, vs_h, vs_c in elements,
+// no alignment needed beyond the element. out is (B, Hq, d) contiguous.
+extern "C" int repro_decode_attention_int8(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* pos, void* out, int B, int Hkv, int C,
+    int G, int d, int64_t q_b, int64_t q_h, int64_t k_b, int64_t k_h,
+    int64_t k_c, int64_t v_b, int64_t v_h, int64_t v_c, int64_t ks_b,
+    int64_t ks_h, int64_t ks_c, int64_t vs_b, int64_t vs_h, int64_t vs_c,
+    int window, int chunk, float scale, int dtype, void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  if (G < 1 || G > 32 || C < 1 || d != 64) return (int)cudaErrorInvalidValue;
+  const int64_t st[14] = {q_b, q_h, k_b, k_h, k_c, v_b, v_h, v_c,
+                          ks_b, ks_h, ks_c, vs_b, vs_h, vs_c};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == kF32)
+    return launch_int8<float, 64>(q, k, v, k_scale, v_scale, (const int*)pos,
+                                  out, B, Hkv, C, G, st, window, chunk, scale, s);
+  return launch_int8<__nv_bfloat16, 64>(q, k, v, k_scale, v_scale,
+                                        (const int*)pos, out, B, Hkv, C, G, st,
+                                        window, chunk, scale, s);
 }

@@ -11,6 +11,12 @@ thread-block cluster per (b, kv head); each block brings its range in with
 16-byte ``cp.async`` copies, skips ranges the masks hide, and computes a
 partial (m, l, acc); the cluster's first block merges the partials from
 distributed shared memory, all in one launch. See the source for the design.
+
+``decode_attention_int8`` is the same kernel over the int8 ring of
+``cfg.kv_quant``: it reads the codes (half the bytes of bf16) and their
+per-token-per-head scales and dequantizes in the kernel. It has no Pallas
+counterpart; it replaces the XLA chain ``dequantize_kv`` + masked softmax
+attention of ``repro/models/attention.py::decode_attend``.
 """
 from __future__ import annotations
 
@@ -62,6 +68,28 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhc,bhcd->bhd", w, v.float()).to(q.dtype)
 
 
+def _check_ring(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                pos: torch.Tensor) -> Tuple[int, int, int, int, int]:
+    """What both kernels need of q, the ring k/v and pos: shapes, the
+    group, the head dim, contiguous last dimensions, (B,) int32 pos and
+    16-byte aligned rows. Returns (B, Hq, d, Hkv, C)."""
+    B, Hq, d = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != d:
+        raise ValueError(f"{name}: bad k/v shapes {tuple(k.shape)}, "
+                         f"{tuple(v.shape)} for q {tuple(q.shape)}")
+    _, Hkv, C, _ = k.shape
+    if Hq % Hkv or Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"{name}: Hq={Hq} over Hkv={Hkv}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError(f"{name}: last dimension must be contiguous")
+    if pos.shape != (B,) or pos.dtype != torch.int32 or not pos.is_contiguous():
+        raise ValueError(f"{name}: pos must be contiguous (B,) int32")
+    _build.check_aligned(name, q, k, v)
+    return B, Hq, d, Hkv, C
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      pos: torch.Tensor, *, window: Optional[int] = None,
                      chunk: Optional[int] = None) -> torch.Tensor:
@@ -73,20 +101,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _build.use_plain("decode_attention", q, k, v, pos):
         return decode_attention_plain(q, k, v, pos, window=window, chunk=chunk)
     code = _build.dtype_code("decode_attention", q, k, v)
-    B, Hq, d = q.shape
-    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != B or k.shape[3] != d:
-        raise ValueError(f"decode_attention: bad k/v shapes {tuple(k.shape)}, "
-                         f"{tuple(v.shape)} for q {tuple(q.shape)}")
-    _, Hkv, C, _ = k.shape
-    if Hq % Hkv or Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"decode_attention: Hq={Hq} over Hkv={Hkv}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: head dim {d} not in {HEAD_DIMS}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("decode_attention: last dimension must be contiguous")
-    if pos.shape != (B,) or pos.dtype != torch.int32 or not pos.is_contiguous():
-        raise ValueError("decode_attention: pos must be contiguous (B,) int32")
-    _build.check_aligned("decode_attention", q, k, v)
+    B, Hq, d, Hkv, C = _check_ring("decode_attention", q, k, v, pos)
     out = torch.empty((B, Hq, d), dtype=q.dtype, device=q.device)
     lib = _build.load_library()
     err = lib.repro_decode_attention(
@@ -102,3 +117,54 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                k_scale: torch.Tensor, v_scale: torch.Tensor,
+                                pos: torch.Tensor, *, window: Optional[int] = None,
+                                chunk: Optional[int] = None) -> torch.Tensor:
+    """``decode_attention_plain`` on the dequantized ring: k/v (B,Hkv,C,d)
+    int8 codes, k/v_scale (B,Hkv,C) in q's dtype; each element is
+    float(code) * float(scale) cast to q's dtype, as ``dequantize_kv``."""
+    kd = (k.float() * k_scale[..., None].float()).to(q.dtype)
+    vd = (v.float() * v_scale[..., None].float()).to(q.dtype)
+    return decode_attention_plain(q, kd, vd, pos, window=window, chunk=chunk)
+
+
+def decode_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          k_scale: torch.Tensor, v_scale: torch.Tensor,
+                          pos: torch.Tensor, *, window: Optional[int] = None,
+                          chunk: Optional[int] = None) -> torch.Tensor:
+    """q: (B,Hq,d) bf16 or fp32; k/v: (B,Hkv,C,d) int8 codes with a
+    contiguous last dimension, base pointers and strides in multiples of 16
+    bytes; k/v_scale: (B,Hkv,C) in q's dtype, any strides; pos: (B,) int32.
+    The ring rule is ``decode_attention``'s. CPU tensors take the plain
+    version, CUDA tensors the kernel."""
+    if _build.use_plain("decode_attention_int8", q, k, v, k_scale, v_scale, pos):
+        return decode_attention_int8_plain(q, k, v, k_scale, v_scale, pos,
+                                           window=window, chunk=chunk)
+    code = _build.dtype_code("decode_attention_int8", q, k_scale, v_scale)
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise TypeError(f"decode_attention_int8: codes must be int8, got "
+                        f"{k.dtype}, {v.dtype}")
+    B, Hq, d, Hkv, C = _check_ring("decode_attention_int8", q, k, v, pos)
+    if k_scale.shape != (B, Hkv, C) or v_scale.shape != (B, Hkv, C):
+        raise ValueError(f"decode_attention_int8: scales {tuple(k_scale.shape)}, "
+                         f"{tuple(v_scale.shape)}, expected {(B, Hkv, C)}")
+    out = torch.empty((B, Hq, d), dtype=q.dtype, device=q.device)
+    lib = _build.load_library()
+    err = lib.repro_decode_attention_int8(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        B, Hkv, C, Hq // Hkv, d,
+        q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        *k_scale.stride(), *v_scale.stride(),
+        window or 0, chunk or 0, d ** -0.5, code, _build.stream_ptr(q))
+    _build.check(err, "decode_attention_int8")
+    decode_attention_int8.launches += 1
+    return out
+
+
+decode_attention_int8.launches = 0

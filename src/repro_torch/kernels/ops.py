@@ -9,15 +9,18 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_int8)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rwkv_wkv import wkv
 
-KERNELS = (rmsnorm, flash_attention, decode_attention, wkv)
+KERNELS = (rmsnorm, flash_attention, decode_attention, decode_attention_int8,
+           wkv)
 
-__all__ = ["rmsnorm", "flash_attention", "decode_attention", "wkv",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["rmsnorm", "flash_attention", "decode_attention",
+           "decode_attention_int8", "wkv", "launch_counts",
+           "reset_launch_counts"]
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,16 +1,18 @@
 """Self-attention for the dense family (``repro.models.attention``).
 
 Prefill runs through ``ops.flash_attention`` and decode through
-``ops.decode_attention``: on the card these are the hand-written Hopper
-kernels, on the CPU their plain versions. The JAX XLA path casts the softmax
-weights to the model dtype before P.V. The bf16 prefill kernel does the
-same (its P.V runs on the tensor cores); the decode kernel, the fp32
-prefill kernel and the plain versions keep P in fp32, as the Pallas kernels
-do, so in bf16 they differ from the XLA path by about one bf16 rounding.
+``ops.decode_attention`` (``ops.decode_attention_int8`` on the int8 cache of
+``cfg.kv_quant``, which dequantizes inside the kernel): on the card these
+are the hand-written Hopper kernels, on the CPU their plain versions. The
+JAX XLA path casts the softmax weights to the model dtype before P.V. The
+bf16 prefill kernel does the same (its P.V runs on the tensor cores); the
+decode kernels, the fp32 prefill kernel and the plain versions keep P in
+fp32, as the Pallas kernels do, so in bf16 they differ from the XLA path by
+about one bf16 rounding.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -22,8 +24,6 @@ from repro_torch.models.common import init_param, rope
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.qkv_bias or cfg.qk_norm:
         raise NotImplementedError("qkv_bias / qk_norm attention is not ported yet")
-    if cfg.kv_quant:
-        raise NotImplementedError("the int8 KV cache is not ported yet")
     if cfg.is_encdec:
         raise NotImplementedError("cross-attention is not ported yet")
 
@@ -91,14 +91,46 @@ def pack_ring(kv: torch.Tensor, cache_len: int) -> torch.Tensor:
     return torch.cat([kv, pad], dim=1)
 
 
+# ---------------------------------------------------------------------------
+# int8 KV quantization (per-token-per-head symmetric), in JAX's order of
+# operations: an fp32 scale max|x| / 127 (1.0 where it is 0), codes
+# round(x / scale) (half to even, by division, not by a reciprocal) clamped
+# to +-127, and the scale stored in x's dtype. Dequantizing uses that stored
+# (in bf16, rounded) scale, so a round trip is not the identity.
+# ---------------------------------------------------------------------------
+
+def quantize_kv(x: torch.Tensor, n_kv_heads: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (..., KVH*hd) -> (int8 codes of x's shape, scales (..., KVH))."""
+    hd = x.shape[-1] // n_kv_heads
+    xr = x.reshape(*x.shape[:-1], n_kv_heads, hd).float()
+    scale = xr.abs().amax(-1) / 127.0
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(xr / scale[..., None]), -127, 127)
+    return q.to(torch.int8).reshape(x.shape), scale.to(x.dtype)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of quantize_kv; returns (..., KVH*hd) in ``dtype``."""
+    kvh = scale.shape[-1]
+    hd = q.shape[-1] // kvh
+    xr = q.reshape(*q.shape[:-1], kvh, hd).float() * scale[..., None].float()
+    return xr.reshape(q.shape).to(dtype)
+
+
 def decode_attend(p: Dict, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
-                  k_cache: torch.Tensor, v_cache: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                  k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None) -> Tuple:
     """One-token attention against the ring-buffer cache.
 
-    x: (B,1,D); pos: (B,) int32 tokens so far; k/v_cache: (B,C,KV*hd).
-    The new K/V is written into slot ``pos % C`` IN PLACE (the JAX version
-    returns updated copies); returns (out, k_cache, v_cache)."""
+    x: (B,1,D); pos: (B,) int32 tokens so far; k/v_cache: (B,C,KV*hd), int8
+    with ``cfg.kv_quant`` beside per-token-per-head scales k/v_scale
+    (B,C,KV). The new K/V (codes and scales) is written into slot
+    ``pos % C`` IN PLACE (the JAX version returns updated copies); returns
+    (out, k_cache, v_cache), or with kv_quant (out, k_cache, v_cache,
+    k_scale, v_scale)."""
     B = x.shape[0]
     C = k_cache.shape[1]
     hd, kvh = cfg.head_dim_, cfg.n_kv_heads
@@ -108,12 +140,24 @@ def decode_attend(p: Dict, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
 
     slot = torch.remainder(pos.long(), C)
     bidx = torch.arange(B, device=x.device)
-    k_cache[bidx, slot] = k_new[:, 0].reshape(B, -1)
-    v_cache[bidx, slot] = v_new[:, 0].reshape(B, -1)
+    kn = k_new[:, 0].reshape(B, -1)
+    vn = v_new[:, 0].reshape(B, -1)
     # (B,C,KV*hd) viewed as the kernel's (B,KV,C,hd): strides, no copy
     kc = k_cache.view(B, C, kvh, hd).transpose(1, 2)
     vc = v_cache.view(B, C, kvh, hd).transpose(1, 2)
-    o = ops.decode_attention(q[:, 0], kc, vc, pos, window=cfg.sliding_window,
-                             chunk=cfg.attn_chunk)
+    win, chunk = cfg.sliding_window, cfg.attn_chunk
+    if cfg.kv_quant:
+        k_cache[bidx, slot], k_scale[bidx, slot] = quantize_kv(kn, kvh)
+        v_cache[bidx, slot], v_scale[bidx, slot] = quantize_kv(vn, kvh)
+        # scales (B,C,KV) as the kernel's (B,KV,C)
+        o = ops.decode_attention_int8(q[:, 0], kc, vc, k_scale.transpose(1, 2),
+                                      v_scale.transpose(1, 2), pos,
+                                      window=win, chunk=chunk)
+    else:
+        k_cache[bidx, slot] = kn
+        v_cache[bidx, slot] = vn
+        o = ops.decode_attention(q[:, 0], kc, vc, pos, window=win, chunk=chunk)
     out = o.reshape(B, 1, -1) @ p["wo"]
+    if cfg.kv_quant:
+        return out, k_cache, v_cache, k_scale, v_scale
     return out, k_cache, v_cache

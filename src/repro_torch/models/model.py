@@ -111,27 +111,35 @@ def forward(cfg: ModelConfig, params: Dict, batch: Dict, *,
             collect_cache: bool = False, cache_len: int = 0):
     """Final hidden states (B,S,D) and, with ``collect_cache``, the
     layer-stacked cache: the ring buffers {"k", "v"} of
-    (L,B,cache_len,KV*hd) for the dense family, the recurrent state
+    (L,B,cache_len,KV*hd) for the dense family (with ``cfg.kv_quant`` int8
+    codes and {"k_scale", "v_scale"} (L,B,cache_len,KV); attention itself
+    runs on the unquantized K/V, as in JAX), the recurrent state
     {"ssm_state", "shift_tm", "shift_cm"} for ssm."""
     _check_family(cfg)
     x = _embed_tokens(cfg, params, batch)
     if cfg.family == "ssm":
         x, cache = _rwkv_stack_full(cfg, params, x, collect_cache=collect_cache)
         return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
-    ks, vs = [], []
+    leaves = {}
     for lp in params["layers"]:
         a_in = rms_norm(x, lp["norm1"], cfg.norm_eps)
         if collect_cache:
             a_out, (kk, vv) = attn_mod.attend(lp["attn"], cfg, a_in, return_kv=True)
-            ks.append(attn_mod.pack_ring(kk, cache_len))
-            vs.append(attn_mod.pack_ring(vv, cache_len))
+            y = {"k": attn_mod.pack_ring(kk, cache_len),
+                 "v": attn_mod.pack_ring(vv, cache_len)}
+            if cfg.kv_quant:
+                y["k"], y["k_scale"] = attn_mod.quantize_kv(y["k"], cfg.n_kv_heads)
+                y["v"], y["v_scale"] = attn_mod.quantize_kv(y["v"], cfg.n_kv_heads)
+            for k, t in y.items():
+                leaves.setdefault(k, []).append(t)
         else:
             a_out = attn_mod.attend(lp["attn"], cfg, a_in)
         x = x + a_out
         f_in = rms_norm(x, lp["norm2"], cfg.norm_eps)
         x = x + mlp_moe.mlp(lp["mlp"], cfg, f_in)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if collect_cache else None
+    cache = ({k: torch.stack(ts) for k, ts in leaves.items()}
+             if collect_cache else None)
     return h, cache
 
 
@@ -184,9 +192,10 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                 cache: Dict):
     """One decode step for the whole batch. tokens: (B,1).
 
-    The cache's buffers (K/V, or the recurrent state and token shifts) are
-    updated IN PLACE (the JAX version returns a new cache); ``pos`` is
-    replaced by pos + 1. Returns (logits, cache)."""
+    The cache's buffers (K/V and, with kv_quant, their scales, or the
+    recurrent state and token shifts) are updated IN PLACE (the JAX version
+    returns a new cache); ``pos`` is replaced by pos + 1. Returns (logits,
+    cache)."""
     _check_family(cfg)
     x = params["embed"][tokens.long()]
     pos = cache["pos"]
@@ -195,8 +204,11 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     else:
         for l, lp in enumerate(params["layers"]):
             a_in = rms_norm(x, lp["norm1"], cfg.norm_eps)
-            a_out, _, _ = attn_mod.decode_attend(lp["attn"], cfg, a_in, pos,
-                                                 cache["k"][l], cache["v"][l])
+            scales = ((cache["k_scale"][l], cache["v_scale"][l])
+                      if cfg.kv_quant else ())
+            a_out = attn_mod.decode_attend(lp["attn"], cfg, a_in, pos,
+                                           cache["k"][l], cache["v"][l],
+                                           *scales)[0]
             x = x + a_out
             f_in = rms_norm(x, lp["norm2"], cfg.norm_eps)
             x = x + mlp_moe.mlp(lp["mlp"], cfg, f_in)

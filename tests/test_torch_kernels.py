@@ -15,6 +15,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.decode_attention import (NEG_INF,
+                                                  decode_attention_int8_plain,
                                                   decode_attention_plain,
                                                   split_geometry)
 from repro_torch.kernels.flash_attention import flash_attention_plain
@@ -219,8 +220,13 @@ def test_wrappers_on_cpu_take_plain_and_count_nothing():
     y, s = tops.wkv(r, k, v, w, u)
     y_ref, s_ref = wkv_plain(r, k, v, w, u)
     assert torch.equal(y, y_ref) and torch.equal(s, s_ref)
+    kq = torch.randint(-127, 128, tk.shape, dtype=torch.int8)
+    sc = torch.rand(tk.shape[:3])
+    assert torch.equal(tops.decode_attention_int8(q1, kq, kq, sc, sc, pos),
+                       decode_attention_int8_plain(q1, kq, kq, sc, sc, pos))
     assert tops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
-                                    "decode_attention": 0, "wkv": 0}
+                                    "decode_attention": 0,
+                                    "decode_attention_int8": 0, "wkv": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -315,7 +321,7 @@ def test_decode_split_geometry_refuses_empty_ring():
         split_geometry(0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_check_aligned(dtype):
     """The model's layouts pass; a view offset by one element, or with a
     row stride that is not a multiple of 16 bytes, raises."""

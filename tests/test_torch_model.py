@@ -146,7 +146,17 @@ def test_bf16_prefill_and_decode_close_to_jax():
 def test_unported_features_raise():
     _, tcfg = configs()
     gen = torch.Generator().manual_seed(0)
-    for kw in (dict(qk_norm=True), dict(kv_quant=True), dict(family="moe"),
+    for kw in (dict(qk_norm=True), dict(qkv_bias=True), dict(family="moe"),
                dict(family="hybrid")):
         with pytest.raises(NotImplementedError):
             tmodel.init_model(dataclasses.replace(tcfg, **kw), gen, "cpu")
+
+
+def test_kv_quant_builds():
+    """The int8 KV cache is ported: kv_quant builds, and its cache is int8."""
+    _, tcfg = configs(kv_quant=True)
+    p = tmodel.init_model(tcfg, torch.Generator().manual_seed(0), "cpu")
+    cache, logits = tmodel.prefill_step(
+        tcfg, p, {"tokens": torch.from_numpy(tokens(tcfg, 1, 8))}, max_len=16)
+    assert cache["k"].dtype == torch.int8 and "k_scale" in cache
+    assert torch.isfinite(logits[..., :tcfg.vocab_size]).all()
