@@ -47,7 +47,20 @@ Phases (any failure exits non-zero; nothing is caught):
      Dense prompts are right-padded with true_lens; rwkv prompts are
      prefilled one by one at their own length, since padding would enter
      the recurrent state;
-  5. print the card's name and power limit and the kernels' JSON line, then
+  5. training (freeing the card before and after): full-width
+     dcache-agent-150m in bf16 through the twin's own train() of
+     repro_torch.launch.serve_llm, 30 AdamW steps at 8 x 512 tokens; every
+     loss and grad_norm finite, the loss down by at least 0.5 (mean of the
+     last 5 against the first 5), no kernel launched in training, the
+     params bf16 without grad after it; those params then serve the twin's 8
+     prompts through its serve() with the launch counts of phase 3's rule,
+     and one TorchLLM decision. Reports the median step, tokens/s, peak
+     memory, the launch API calls and busy share of 3 profiled steps, and
+     the model-FLOP share of the bf16 peak. Then one make_train_step step
+     at fp32, 2 layers of full width, on the CPU and on the card, for
+     dcache-agent-150m (B 2, S 64) and rwkv6-7b (B 1, S 32): the loss within
+     1e-4 relative, grad_norm within 1e-3;
+  6. print the card's name and power limit and the kernels' JSON line, then
      the result line.
 
 It imports nothing of JAX or of the JAX package ``repro``. Without a CUDA
@@ -59,6 +72,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -984,6 +998,163 @@ def free_card():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training, then serving the trained weights
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 30
+
+
+def batch_to(batch, device):
+    """A TokenStream batch (numpy) as tensors on ``device``."""
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def train_flops(cfg, n_params, B, S):
+    """Products of one training step: 6 N per token, plus the attention's
+    QK^T and PV over the full S x S the eager route computes (4 B Hq S^2 hd
+    a layer forward), run 4 times: forward, backward (2x) and the block
+    remat's recompute."""
+    attn = 4 * B * cfg.n_heads * S * S * cfg.head_dim_ * cfg.n_layers
+    return 6 * n_params * B * S + 4 * attn
+
+
+def train_full_width():
+    """Full-width dcache-agent-150m in bf16 through the twin's own train()
+    (TrainLoop over a Prefetcher of TokenStream(batch 8, seq 512, seed 0),
+    AdamW lr 1e-3, 3 warmup steps, 30 steps): every loss and grad_norm
+    finite, the mean of the last 5 losses at least 0.5 under the first 5's,
+    no kernel launched. The trained params (bf16, no grad) then serve the
+    twin's 8 prompts through its serve() with exact launch counts and one
+    TorchLLM decision. Then 3 more steps under the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import HeartbeatMonitor
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_llm
+    from repro_torch.models.model import init_model
+    from repro_torch.training import AdamWConfig, Prefetcher, TokenStream
+
+    cfg = get_config("dcache-agent-150m")
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = sum(t.numel() for t in leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    mon = HeartbeatMonitor()
+    pf = Prefetcher(TokenStream(cfg, batch=TRAIN_B, seq=TRAIN_S, seed=0))
+    t0 = time.perf_counter()
+    try:
+        loop, metrics = serve_llm.train(
+            cfg, params, pf, TRAIN_STEPS,
+            AdamWConfig(lr=1e-3, warmup_steps=3, total_steps=TRAIN_STEPS),
+            monitor=mon)
+    finally:
+        pf.close()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    gnorms = [m["grad_norm"] for m in metrics]
+    assert all(map(math.isfinite, losses + gnorms)), "a loss or grad_norm is not finite"
+    first, last = statistics.fmean(losses[:5]), statistics.fmean(losses[-5:])
+    assert last <= first - 0.5, f"loss fell from {first:.3f} to {last:.3f} only"
+    assert ops.launch_counts() == before, "training launched a hand-written kernel"
+    assert all(t.dtype == torch.bfloat16 and not t.requires_grad
+               for t in leaves(loop.params)), "trained params are not plain bf16"
+    step_ms = 1e3 * statistics.median(mon.step_times)
+    tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+    log(f"  trained {TRAIN_STEPS} steps at {TRAIN_B}x{TRAIN_S} in {wall:.2f} s: "
+        f"loss {losses[0]:.3f} -> {losses[-1]:.3f} (mean of first 5 {first:.3f}, "
+        f"last 5 {last:.3f}); grad_norm {gnorms[0]:.3f} -> {gnorms[-1]:.3f}; "
+        f"median step {step_ms:.2f} ms = {tok_s:.0f} tok/s; peak memory "
+        f"{peak / 2**30:.3f} GiB; kernel launches in training: 0")
+
+    ops.reset_launch_counts()
+    eng, reqs = serve_llm.serve(cfg, loop.params, serve_llm.PROMPTS, device="cuda")
+    text = serve_llm.decide(eng)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    expected = expected_launches(cfg, eng.prefills, eng.steps)
+    assert all(r.done for r in reqs) and len(reqs) == 8, "unfinished requests"
+    assert isinstance(text, str), "TorchLLM returned no text"
+    log(f"  served the trained params: prefills={eng.prefills} "
+        f"decode_steps={eng.steps} launches={counts} expected={expected}; "
+        f"TorchLLM -> {text!r}")
+    assert counts == expected, "launch counts differ from the main path's"
+
+    # 3 more steps under the profiler (after serving: the served weights
+    # are the 30-step ones)
+    batch = batch_to(TokenStream(cfg, batch=TRAIN_B, seq=TRAIN_S,
+                                 seed=1).next_batch(), "cuda")
+    state = {"p": loop.params, "o": loop.opt_state}
+
+    def one_step():
+        state["p"], state["o"], _ = loop.step_fn(state["p"], state["o"], batch)
+
+    per_call, busy, wall_us, api = device_profile(one_step, 3,
+                                                  "profile_dcache_train_step.txt")
+    dev_us = sum(per_call.values())
+    flops = train_flops(cfg, n_params, TRAIN_B, TRAIN_S)
+    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    top = sorted(per_call.items(), key=lambda kv: -kv[1])[:8]
+    log(f"  profile train step: host wall {wall_us / 1e3:.2f} ms/step, device "
+        f"{dev_us / 1e3:.2f} ms/step, device busy {100 * busy:.1f}%, launch API "
+        f"calls/step {api:.0f}; model FLOPs {flops / 1e12:.3f} TFLOP/step, "
+        f"share of the bf16 dense peak (989 TFLOP/s, H100 SXM5) "
+        f"{100 * mfu:.2f}%; top: "
+        + "; ".join(f"{k[:48]} {t / 1e3:.2f} ms" for k, t in top))
+    return counts, dict(
+        steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S, params=n_params,
+        losses=losses, grad_norms=gnorms, first5=first, last5=last,
+        step_ms=step_ms, step_ms_all=[1e3 * t for t in mon.step_times],
+        tok_s=tok_s, peak_bytes=peak, wall_s=wall, profile_wall_ms=wall_us / 1e3,
+        profile_device_ms=dev_us / 1e3, busy=busy, launch_api_calls=api,
+        flops=flops, mfu=mfu, peak_flops=PEAK_FLOPS[torch.bfloat16],
+        top_us=dict(top), serve_launches=counts, decision=text)
+
+
+def train_cpu_vs_card(arch, B, S):
+    """One make_train_step step of ``arch`` at full width cut to 2 layers,
+    fp32, on the CPU and on the card: the loss within 1e-4 relative, the
+    grad_norm within 1e-3; and the largest per-leaf gradient error relative
+    to the leaf's max (from loss_and_grads), recorded."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_model
+    from repro_torch.training import (AdamWConfig, TokenStream, init_opt_state,
+                                      make_train_step)
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_loop import loss_and_grads
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    gpu_params = init_model(cfg, torch.Generator(device="cuda").manual_seed(1),
+                            "cuda")
+    cpu_params = tree_to(gpu_params, "cpu")
+    batch = TokenStream(cfg, batch=B, seq=S, seed=2).next_batch()
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=10))
+    out = {}
+    for dev, p in (("cpu", cpu_params), ("cuda", gpu_params)):
+        b = batch_to(batch, dev)
+        t0 = time.perf_counter()
+        _, _, m = step(p, init_opt_state(p), b)
+        grads, _ = loss_and_grads(cfg, p, b)
+        out[dev] = (m, tree_leaves(grads), time.perf_counter() - t0)
+    (mc, gc_, tc), (mg, gg, tg) = out["cpu"], out["cuda"]
+    loss_rel = abs(float(mc["loss"]) - float(mg["loss"])) / abs(float(mc["loss"]))
+    gn_rel = abs(float(mc["grad_norm"]) - float(mg["grad_norm"])) / float(mc["grad_norm"])
+    leaf_rel = max((a - b.cpu()).abs().max().item() / max(a.abs().max().item(), 1e-30)
+                   for a, b in zip(gc_, gg))
+    log(f"  {arch} train step cpu vs card fp32 (2 layers, full width, B={B} "
+        f"S={S}): loss {float(mc['loss']):.6f} vs {float(mg['loss']):.6f} "
+        f"(rel {loss_rel:.2e} <= 1e-4), grad_norm {float(mc['grad_norm']):.6f} "
+        f"vs {float(mg['grad_norm']):.6f} (rel {gn_rel:.2e} <= 1e-3), largest "
+        f"per-leaf gradient error / leaf max {leaf_rel:.2e}; cpu {tc:.2f} s, "
+        f"card {tg:.2f} s")
+    assert loss_rel <= 1e-4, f"{arch}: loss differs by {loss_rel:.2e} relative"
+    assert gn_rel <= 1e-3, f"{arch}: grad_norm differs by {gn_rel:.2e} relative"
+    return dict(loss_rel=loss_rel, grad_norm_rel=gn_rel, leaf_rel=leaf_rel,
+                cpu_s=tc, card_s=tg)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1043,9 +1214,27 @@ def main() -> int:
                            cpu_vs_card_int8_code_flips=flips)
         free_card()
 
+    log("phase 5: training on the card, then serving the trained weights")
+    t5 = time.perf_counter()
+    free_card()
+    c, training = train_full_width()
+    for k, v in c.items():
+        counts[k] = counts.get(k, 0) + v
+    free_card()
+    for arch, B, S in (("dcache-agent-150m", 2, 64), ("rwkv6-7b", 1, 32)):
+        training[f"cpu_vs_card_{arch}"] = train_cpu_vs_card(arch, B, S)
+        free_card()
+    training["phase_s"] = time.perf_counter() - t5
+
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"card: {card} | training dcache-agent-150m {TRAIN_B}x{TRAIN_S} bf16: "
+        f"step_ms={training['step_ms']:.2f} tok_s={training['tok_s']:.0f} "
+        f"peak_GiB={training['peak_bytes'] / 2**30:.3f} "
+        f"busy={100 * training['busy']:.1f}% "
+        f"launch_api_calls={training['launch_api_calls']:.0f} "
+        f"model_flop_share={100 * training['mfu']:.2f}% of 989 TFLOP/s")
     for name, sv in serve.items():
         log(f"card: {card} | {name} serving tok/s={sv['tok_s']:.1f} "
             f"mean_ttft_ms={sv['mean_ttft_ms']:.2f} "
@@ -1065,8 +1254,8 @@ def main() -> int:
                                "src/repro/kernels/flash_attention.py:108"),
            "wkv": ("src/repro_torch/kernels/csrc/rwkv_wkv.cu",
                    "src/repro/kernels/rwkv_wkv.py:56")}
-    # launches: summed over the three served paths and the paged phase,
-    # each counted from zero
+    # launches: summed over the three served paths, the paged phase and
+    # the serving of the trained weights, each counted from zero
     kernels = [{"name": n, "route": "cuda", "source": src[n][0],
                 "replaces": src[n][1], "launches": counts[n],
                 "max_abs_err": errs[n], "ms": timing[n]["ms"],
@@ -1074,7 +1263,8 @@ def main() -> int:
                 "bound_ms": timing[n]["bound_ms"],
                 "bound_by": timing[n]["bound_by"],
                 "library_ms": timing[n]["library_ms"]} for n in src]
-    result = {"card": card, "serving": serve, "paged": paged, "timing": timing,
+    result = {"card": card, "serving": serve, "paged": paged,
+              "training": training, "timing": timing,
               "max_abs_err": errs, "kernels": kernels,
               "command_s": time.perf_counter() - t_start}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -134,7 +134,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def use_plain(name: str, *tensors: torch.Tensor) -> bool:
     """True for CPU tensors (take the plain version), False for CUDA tensors
-    (launch the kernel); raises for mixed or other devices."""
+    (launch the kernel); raises for mixed or other devices, and for CUDA
+    inputs that autograd would need a backward for (``refuse_autograd``)."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devs))}")
@@ -143,7 +144,21 @@ def use_plain(name: str, *tensors: torch.Tensor) -> bool:
         return True
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
+    refuse_autograd(name, *tensors)
     return False
+
+
+def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if grad mode is on and an input requires grad: a kernel has no
+    backward, and its output would silently cut the graph. Training takes
+    the differentiable route (``forward(..., is_train=True)``, what
+    ``loss_fn`` runs); serving runs under ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad under grad mode, and the CUDA "
+            "kernel has no backward; train on the training route "
+            "(forward(..., is_train=True) / loss_fn), or call the kernel "
+            "under torch.no_grad()")
 
 
 def dtype_code(name: str, *tensors: torch.Tensor) -> int:

@@ -2,8 +2,10 @@
 
 A tensor on the CPU takes the kernel's plain PyTorch version; a tensor on a
 CUDA device launches the hand-written Hopper kernel, or the wrapper raises.
-There is no fallback from the card to the plain version. Each wrapper counts
-its kernel launches in ``<wrapper>.launches``.
+There is no fallback from the card to the plain version. No kernel has a
+backward, so a CUDA input that requires grad under grad mode raises
+(training takes ``forward(..., is_train=True)``). Each wrapper counts its
+kernel launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 

@@ -9,6 +9,12 @@ bf16 prefill kernel does the same (its P.V runs on the tensor cores); the
 decode kernels, the fp32 prefill kernel and the plain versions keep P in
 fp32, as the Pallas kernels do, so in bf16 they differ from the XLA path by
 about one bf16 rounding.
+
+Training (``attend(..., is_train=True)``) takes neither: the kernels have
+no backward, and JAX trains on its XLA path. ``attention_xla`` is that
+path in eager, differentiable torch ops on any device, with the XLA
+rounding: fp32 scores, an fp32 softmax, the weights cast to the value
+dtype before P.V.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.common import init_param, rope
+
+NEG_INF = -1e30
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -56,22 +64,69 @@ def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor):
             v.view(B, S, kvh, hd))
 
 
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor,
+          cfg: ModelConfig) -> torch.Tensor:
+    """(len(qpos), len(kpos)) additive causal mask in fp32, with the
+    window and chunk of ``cfg``."""
+    qp, kp = qpos[:, None], kpos[None, :]
+    ok = kp <= qp
+    if cfg.sliding_window is not None:
+        ok &= (qp - kp) < cfg.sliding_window
+    if cfg.attn_chunk is not None:
+        ok &= (qp // cfg.attn_chunk) == (kp // cfg.attn_chunk)
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def _pick_chunk(s: int, target: int = 1024) -> int:
+    if s <= target:
+        return s
+    c = target
+    while s % c:
+        c //= 2
+    return max(c, 1)
+
+
+def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Causal attention as the JAX XLA path computes it, over query chunks
+    of at most 1024 rows. q: (B,S,KV,G,hd); k/v: (B,S,KV,hd) ->
+    (B,S,KV*G*hd) in v's dtype."""
+    B, S = q.shape[:2]
+    hd = q.shape[-1]
+    kf = k.float()
+    kpos = torch.arange(S, device=q.device)
+    c = _pick_chunk(S)
+    outs = []
+    for i in range(0, S, c):
+        s = torch.einsum("bckgh,btkh->bkgct", q[:, i:i + c].float(), kf) \
+            * hd ** -0.5
+        s = s + _mask(kpos[i:i + c], kpos, cfg)
+        w = torch.softmax(s, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bkgct,btkh->bckgh", w, v))
+    return torch.cat(outs, dim=1).reshape(B, S, -1)
+
+
 def attend(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
-           return_kv: bool = False):
+           return_kv: bool = False, is_train: bool = False):
     """Causal self-attention over the full sequence. x: (B,S,D) -> (B,S,D).
 
-    With ``return_kv`` also returns the roped flat K/V (B,S,KV*hd) for the
-    prefill cache."""
+    Serving runs ``ops.flash_attention``; ``is_train`` runs
+    ``attention_xla``. With ``return_kv`` also returns the roped flat K/V
+    (B,S,KV*hd) for the prefill cache."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
     q, k, v = _project_qkv(p, cfg, x)
     pos = torch.arange(S, dtype=torch.int32, device=x.device)
     q = rope(q.reshape(B, S, -1, hd), pos, cfg.rope_theta)   # (B,S,Hq,hd)
     k = rope(k, pos, cfg.rope_theta)                         # (B,S,KV,hd)
-    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=True,
-                              window=cfg.sliding_window, chunk=cfg.attn_chunk)
-    out = out.transpose(1, 2).reshape(B, S, -1)
+    if is_train:
+        out = attention_xla(q.view(v.shape[:3] + (-1, hd)), k, v, cfg)
+    else:
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=True,
+                                  window=cfg.sliding_window,
+                                  chunk=cfg.attn_chunk)
+        out = out.transpose(1, 2).reshape(B, S, -1)
     proj = out @ p["wo"]
     if return_kv:
         return proj, (k.reshape(B, S, -1), v.reshape(B, S, -1))

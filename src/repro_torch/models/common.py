@@ -7,6 +7,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.rmsnorm import rmsnorm_plain
 
 
 def init_param(shape, generator: torch.Generator, dtype: torch.dtype,
@@ -25,8 +26,33 @@ def init_param(shape, generator: torch.Generator, dtype: torch.dtype,
     return (t * std).to(dtype=dtype, device=device)
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """fp32 normalise, cast to x's dtype, times the gain (through the kernel)."""
+class GradCast(torch.autograd.Function):
+    """Identity forward; the backward casts the cotangent to ``dtype``
+    (``repro.models.common.grad_cast``): the fp32 loss head would otherwise
+    carry an fp32 cotangent down the residual stream."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g.to(ctx.dtype), None
+
+
+def grad_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return GradCast.apply(x, dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, *,
+             is_train: bool = False) -> torch.Tensor:
+    """fp32 normalise, cast to x's dtype, times the gain. Serving goes
+    through ``ops.rmsnorm`` (the kernel on the card); ``is_train`` takes the
+    differentiable torch ops of ``rmsnorm_plain`` on any device, as JAX
+    trains on XLA's ``rms_norm`` and never on its Pallas kernel."""
+    if is_train:
+        return rmsnorm_plain(x, scale, eps)
     return ops.rmsnorm(x, scale, eps=eps)
 
 

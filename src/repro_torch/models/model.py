@@ -9,21 +9,30 @@ weights (dense) or the ``tm`` (time-mix) and ``cm`` (channel-mix) weights
 
     init_model(cfg, generator, device)          -> params
     forward(cfg, params, batch)                 -> final hidden states
+    loss_fn(cfg, params, batch)                 -> (scalar, metrics)
     prefill_step(cfg, params, batch, ...)       -> (cache, last-token logits)
     decode_step(cfg, params, tokens, cache)     -> (logits, cache)
+
+``forward(..., is_train=True)`` (what ``loss_fn`` runs) is the training
+route: every norm, attention and WKV call takes its differentiable torch
+ops, the counterpart of JAX's XLA path, and each layer is rematerialised
+under ``cfg.remat == "block"``. The serving steps pass ``is_train=False``
+and reach the kernels.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import effective_cache_len
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp_moe, rwkv
-from repro_torch.models.common import init_param, rms_norm
+from repro_torch.models.common import grad_cast, init_param, rms_norm
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -82,65 +91,126 @@ def _unembed(cfg: ModelConfig, p: Dict, h: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _rwkv_stack_full(cfg: ModelConfig, params: Dict, x: torch.Tensor, *,
-                     collect_cache: bool):
-    """The rwkv6 layers over a whole sequence from a zero state and zero
-    token shifts. Returns (x, cache) with the layer-stacked ``ssm_state``
-    (L,B,H,hd,hd) fp32 and ``shift_tm``/``shift_cm`` (L,B,D), or None."""
+def _rwkv_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, *,
+                is_train: bool):
+    """One rwkv6 layer over a whole sequence from a zero state and zero
+    token shifts. Returns (x, {"ssm_state", "shift_tm", "shift_cm"})."""
     shift0 = torch.zeros((x.shape[0], cfg.d_model), dtype=x.dtype,
                          device=x.device)
-    states, tm_shifts, cm_shifts = [], [], []
-    for lp in params["layers"]:
-        a_in = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        tm_out, tm_shift, s_f = rwkv.time_mix(lp["tm"], cfg, a_in, shift0, None)
-        x = x + tm_out
-        c_in = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        cm_out, cm_shift = rwkv.channel_mix(lp["cm"], cfg, c_in, shift0)
-        x = x + cm_out
-        states.append(s_f)
-        tm_shifts.append(tm_shift)
-        cm_shifts.append(cm_shift)
-    if not collect_cache:
-        return x, None
-    return x, {"ssm_state": torch.stack(states),
-               "shift_tm": torch.stack(tm_shifts),
-               "shift_cm": torch.stack(cm_shifts)}
+    a_in = rms_norm(x, lp["norm1"], cfg.norm_eps, is_train=is_train)
+    tm_out, tm_shift, s_f = rwkv.time_mix(lp["tm"], cfg, a_in, shift0, None,
+                                          is_train=is_train)
+    x = x + tm_out
+    c_in = rms_norm(x, lp["norm2"], cfg.norm_eps, is_train=is_train)
+    cm_out, cm_shift = rwkv.channel_mix(lp["cm"], cfg, c_in, shift0)
+    return x + cm_out, {"ssm_state": s_f, "shift_tm": tm_shift,
+                        "shift_cm": cm_shift}
+
+
+def _dense_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, *,
+                 is_train: bool, collect_cache: bool, cache_len: int):
+    """One dense layer over a whole sequence. Returns (x, this layer's
+    cache leaves, empty without ``collect_cache``)."""
+    a_in = rms_norm(x, lp["norm1"], cfg.norm_eps, is_train=is_train)
+    y = {}
+    if collect_cache:
+        a_out, (kk, vv) = attn_mod.attend(lp["attn"], cfg, a_in,
+                                          return_kv=True, is_train=is_train)
+        y = {"k": attn_mod.pack_ring(kk, cache_len),
+             "v": attn_mod.pack_ring(vv, cache_len)}
+        if cfg.kv_quant:
+            y["k"], y["k_scale"] = attn_mod.quantize_kv(y["k"], cfg.n_kv_heads)
+            y["v"], y["v_scale"] = attn_mod.quantize_kv(y["v"], cfg.n_kv_heads)
+    else:
+        a_out = attn_mod.attend(lp["attn"], cfg, a_in, is_train=is_train)
+    x = x + a_out
+    f_in = rms_norm(x, lp["norm2"], cfg.norm_eps, is_train=is_train)
+    return x + mlp_moe.mlp(lp["mlp"], cfg, f_in), y
+
+
+def _remat(layer, cfg: ModelConfig):
+    """Layer rematerialisation (``repro.models.model._remat``): "block"
+    keeps only each layer's input for the backward and recomputes the rest.
+    A layer draws no random numbers, so no RNG state is stashed."""
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            'remat="dots" (save the products, recompute the rest) is not '
+            "ported yet; see ROADMAP.md, queue 1")
+    return functools.partial(checkpoint, layer, use_reentrant=False,
+                             preserve_rng_state=False)
 
 
 def forward(cfg: ModelConfig, params: Dict, batch: Dict, *,
-            collect_cache: bool = False, cache_len: int = 0):
+            is_train: bool = True, collect_cache: bool = False,
+            cache_len: int = 0):
     """Final hidden states (B,S,D) and, with ``collect_cache``, the
     layer-stacked cache: the ring buffers {"k", "v"} of
     (L,B,cache_len,KV*hd) for the dense family (with ``cfg.kv_quant`` int8
     codes and {"k_scale", "v_scale"} (L,B,cache_len,KV); attention itself
     runs on the unquantized K/V, as in JAX), the recurrent state
-    {"ssm_state", "shift_tm", "shift_cm"} for ssm."""
+    {"ssm_state" (L,B,H,hd,hd) fp32, "shift_tm", "shift_cm" (L,B,D)} for
+    ssm. As in JAX, ``is_train`` is the default: the training route (module
+    docstring); the serving steps pass ``is_train=False``."""
     _check_family(cfg)
     x = _embed_tokens(cfg, params, batch)
     if cfg.family == "ssm":
-        x, cache = _rwkv_stack_full(cfg, params, x, collect_cache=collect_cache)
-        return rms_norm(x, params["final_norm"], cfg.norm_eps), cache
+        layer = functools.partial(_rwkv_layer, cfg, is_train=is_train)
+    else:
+        layer = functools.partial(_dense_layer, cfg, is_train=is_train,
+                                  collect_cache=collect_cache,
+                                  cache_len=cache_len)
+    if is_train and cfg.remat != "none":
+        layer = _remat(layer, cfg)
     leaves = {}
     for lp in params["layers"]:
-        a_in = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        if collect_cache:
-            a_out, (kk, vv) = attn_mod.attend(lp["attn"], cfg, a_in, return_kv=True)
-            y = {"k": attn_mod.pack_ring(kk, cache_len),
-                 "v": attn_mod.pack_ring(vv, cache_len)}
-            if cfg.kv_quant:
-                y["k"], y["k_scale"] = attn_mod.quantize_kv(y["k"], cfg.n_kv_heads)
-                y["v"], y["v_scale"] = attn_mod.quantize_kv(y["v"], cfg.n_kv_heads)
-            for k, t in y.items():
-                leaves.setdefault(k, []).append(t)
-        else:
-            a_out = attn_mod.attend(lp["attn"], cfg, a_in)
-        x = x + a_out
-        f_in = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + mlp_moe.mlp(lp["mlp"], cfg, f_in)
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, y = layer(lp, x)
+        for k, t in y.items():
+            leaves.setdefault(k, []).append(t)
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps, is_train=is_train)
     cache = ({k: torch.stack(ts) for k, ts in leaves.items()}
              if collect_cache else None)
     return h, cache
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked cross-entropy)
+# ---------------------------------------------------------------------------
+
+def chunked_xent(cfg: ModelConfig, params: Dict, h: torch.Tensor,
+                 targets: torch.Tensor, chunk: int = 512):
+    """Mean token cross-entropy and accuracy of h (B,S,D) against targets
+    (B,S), over 512-token chunks of the sequence when S divides by 512,
+    else one chunk. Each chunk's logits are fp32 (the JAX einsum's
+    preferred_element_type), the padded vocab at -1e30."""
+    B, S, D = h.shape
+    w = (params["embed"].t() if cfg.tie_embeddings else params["unembed"]).float()
+    c = chunk if S % chunk == 0 else S
+    pad_mask = (torch.arange(cfg.padded_vocab, device=h.device)
+                >= cfg.vocab_size) * -1e30
+    loss = torch.zeros((), dtype=torch.float32, device=h.device)
+    correct = torch.zeros((), dtype=torch.int64, device=h.device)
+    for i in range(0, S, c):
+        tt = targets[:, i:i + c].long()
+        logits = h[:, i:i + c].float() @ w + pad_mask
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tt[..., None])[..., 0]
+        loss = loss + torch.sum(lse - gold)
+        correct = correct + torch.sum(torch.argmax(logits, -1) == tt)
+    ntok = B * S
+    return loss / ntok, correct.float() / ntok
+
+
+def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
+            aux_weight: float = 0.01):
+    """(total, {"loss", "aux_loss", "accuracy"}) on the training route. The
+    dense and ssm families have no auxiliary loss, so aux is 0."""
+    h, _ = forward(cfg, params, batch, is_train=True)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    # keep the backward residual stream in the model dtype
+    loss, acc = chunked_xent(cfg, params, grad_cast(h, cfg.torch_dtype),
+                             batch["targets"])
+    total = loss + aux_weight * aux
+    return total, {"loss": loss, "aux_loss": aux, "accuracy": acc}
 
 
 def prefill_step(cfg: ModelConfig, params: Dict, batch: Dict,
@@ -155,7 +225,8 @@ def prefill_step(cfg: ModelConfig, params: Dict, batch: Dict,
     padded (the engine prefills them at their exact length)."""
     B, S = batch["tokens"].shape
     C = effective_cache_len(cfg, max_len or S)
-    h, cache = forward(cfg, params, batch, collect_cache=True, cache_len=C)
+    h, cache = forward(cfg, params, batch, is_train=False, collect_cache=True,
+                       cache_len=C)
     dev = h.device
     if true_lens is None:
         pos = torch.full((B,), S, dtype=torch.int32, device=dev)

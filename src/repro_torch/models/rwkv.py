@@ -5,7 +5,10 @@ The WKV recurrence runs through ``ops.wkv``: on the card the hand-written
 Hopper kernel, on the CPU its plain version. The JAX model computes the
 decode step's recurrence with einsums outside any kernel; here the decode
 step goes through the same kernel with S = 1, updating the cache's state in
-place.
+place. Training (``time_mix(..., is_train=True)``) runs the recurrence and
+the per-head norm as the differentiable torch ops of ``wkv_plain`` and
+``rmsnorm_plain`` on any device, the counterpart of JAX's ``lax.scan``
+``wkv_scan``: the kernels have no backward.
 
 Weights keep the JAX leaf names and (d_in, d_out) orientation, one dict per
 layer. Rounding follows the JAX code exactly: everything up to the decay's
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.rwkv_wkv import wkv_plain
 from repro_torch.models.common import init_param, rms_norm
 
 LORA_RANK = 32
@@ -108,25 +112,29 @@ def _tm_inputs(p: Dict, x: torch.Tensor, xx: torch.Tensor, cfg: ModelConfig):
 
 
 def _out(p: Dict, cfg: ModelConfig, y: torch.Tensor, g: torch.Tensor,
-         dtype: torch.dtype) -> torch.Tensor:
+         dtype: torch.dtype, is_train: bool = False) -> torch.Tensor:
     """Per-head norm of the WKV output (a ones gain, then ``ln_x``), gated
     by g and projected by ``wo``."""
     B, S, H, hd = y.shape
     ones = torch.ones((hd,), dtype=dtype, device=y.device)
-    y = rms_norm(y.to(dtype), ones, cfg.norm_eps).view(B, S, H * hd) * p["ln_x"]
+    y = rms_norm(y.to(dtype), ones, cfg.norm_eps,
+                 is_train=is_train).view(B, S, H * hd) * p["ln_x"]
     return (y * g) @ p["wo"]
 
 
 def time_mix(p: Dict, cfg: ModelConfig, x: torch.Tensor, shift: torch.Tensor,
-             state: Optional[torch.Tensor]
+             state: Optional[torch.Tensor], *, is_train: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence time-mix. x: (B,S,D); shift: (B,D) last token of the
     previous segment; state: (B,H,hd,hd) fp32, or None for zeros. Returns
     (out, shift', state')."""
     xx = torch.cat([shift[:, None, :], x[:, :-1, :]], dim=1)
     r, k, v, w, g = _tm_inputs(p, x, xx, cfg)
-    y, s_final = wkv_scan(r, k, v, w, p["u"], state)
-    return _out(p, cfg, y, g, x.dtype), x[:, -1, :], s_final
+    if is_train:
+        y, s_final = wkv_plain(r, k, v, w, p["u"], state)
+    else:
+        y, s_final = wkv_scan(r, k, v, w, p["u"], state)
+    return _out(p, cfg, y, g, x.dtype, is_train), x[:, -1, :], s_final
 
 
 def time_mix_step(p: Dict, cfg: ModelConfig, x: torch.Tensor,

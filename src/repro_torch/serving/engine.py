@@ -7,7 +7,8 @@ into the batch cache. Attention prompts are right-padded to a power-of-two
 bucket (masked by construction, see ``prefill_step``); recurrent (ssm,
 hybrid) prompts are prefilled at their exact length, since pad tokens would
 pass through the recurrent state and the token shift. Completed rows free
-their slot.
+their slot. Prefill and decode run under ``torch.no_grad()``, so trained
+params that still require grad build no graph.
 """
 from __future__ import annotations
 
@@ -95,6 +96,7 @@ class ServingEngine:
         self.waiting.append(req)
         return req
 
+    @torch.no_grad()
     def _admit(self):
         exact = self.cfg.family in ("ssm", "hybrid")  # recurrent state: no pad
         for slot in range(self.max_batch):
@@ -117,6 +119,7 @@ class ServingEngine:
             req.first_token_at = time.perf_counter()
             self.slots[slot] = req
 
+    @torch.no_grad()
     def step(self) -> int:
         """One engine step: admit waiting requests, decode all slots."""
         self._admit()

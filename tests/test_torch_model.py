@@ -61,7 +61,8 @@ def test_forward_hidden_matches_jax(fp32_pair):
     toks = tokens(tcfg, 2, 24)
     jh, _, _ = jmodel.forward(jcfg, jp, {"tokens": jnp.asarray(toks)},
                               is_train=False)
-    th, _ = tmodel.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)})
+    th, _ = tmodel.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)},
+                           is_train=False)
     np.testing.assert_allclose(f32(th), f32(jh), **F32)
 
 
@@ -109,7 +110,7 @@ def test_decode_matches_forward(fp32_pair):
     _, tcfg, _, tp = fp32_pair
     B, S = 2, 12
     toks = torch.from_numpy(tokens(tcfg, B, S + 1, seed=4))
-    h, _ = tmodel.forward(tcfg, tp, {"tokens": toks})
+    h, _ = tmodel.forward(tcfg, tp, {"tokens": toks}, is_train=False)
     ref1 = tmodel._unembed(tcfg, tp, h[:, S - 1:S])
     cache, logits = tmodel.prefill_step(tcfg, tp, {"tokens": toks[:, :S]},
                                         max_len=S + 2)

@@ -294,7 +294,8 @@ def test_forward_hidden_matches_jax(fp32_pair):
     toks = tokens(tcfg, 2, 20)
     jh, _, _ = jmodel.forward(jcfg, jp, {"tokens": jnp.asarray(toks)},
                               is_train=False)
-    th, cache = tmodel.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)})
+    th, cache = tmodel.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)},
+                               is_train=False)
     assert cache is None
     np.testing.assert_allclose(f32(th), f32(jh), **F32)
 
@@ -340,7 +341,7 @@ def test_decode_matches_forward(fp32_pair):
     _, tcfg, _, tp = fp32_pair
     B, S = 2, 10
     toks = torch.from_numpy(tokens(tcfg, B, S + 2, seed=4))
-    h, _ = tmodel.forward(tcfg, tp, {"tokens": toks})
+    h, _ = tmodel.forward(tcfg, tp, {"tokens": toks}, is_train=False)
     cache, logits = tmodel.prefill_step(tcfg, tp, {"tokens": toks[:, :S]})
     np.testing.assert_allclose(f32(logits), f32(tmodel._unembed(tcfg, tp, h[:, S - 1:S])),
                                **F32)
