@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; nothing is caught):
      the S*G edge, S = 512 (the engine's max_len); the int8 decode kernel
      on rings of 64, 100 and 512 slots at G = 3 and 16, with windows,
      chunks, and a ring holding empty (scale 0) and prefill-pad (scale 1.0)
-     slots; rmsnorm at d 100 and on views off 16 bytes (its scalar path),
+     slots; rmsnorm at d 100, on views off 16 bytes (its scalar path) and
+     at qwen3-4b's qk_norm shapes (q (2,37,8,4,128), k (2,37,8,128)),
      its C++ launch geometry equal to kernels/rmsnorm.py's; WKV around its
      staged chunk of T steps (T - 1, T, T + 1), at S = 512, from a random
      state and in place, its state bit-identical to the plain version's. A
@@ -60,7 +61,22 @@ Phases (any failure exits non-zero; nothing is caught):
      at fp32, 2 layers of full width, on the CPU and on the card, for
      dcache-agent-150m (B 2, S 64) and rwkv6-7b (B 1, S 32): the loss within
      1e-4 relative, grad_norm within 1e-3;
-  6. print the card's name and power limit and the kernels' JSON line, then
+  6. checkpoints (freeing the card before and after): full-width
+     dcache-agent-150m in bf16 trained through repro_torch.launch.train
+     (--preset full, 8 x 512, 4 steps, no kernel launched) with exactly one
+     save, at the end (the reference's format: msgpack records, zlib where
+     zstandard is absent, blake2b digests); a cold restart with --resume on
+     the card and another on the CPU, each equal to the saved params (bf16),
+     moments (fp32) and step bit for bit; the restored weights serve the
+     twin's 8 prompts with phase 3's launch rule and the same tokens as the
+     saved ones; then repro_torch.launch.train_tiny on the card (reduced
+     qwen3-4b, 60 steps, two failures recovered from disk, a cold restart).
+     Reports bytes on disk, the codec, the save's seconds and MB/s (the
+     JAX-layout stack on the card, timed again on the saved state, plus the
+     checkpointer's copy to the host and write) and each cold restart's
+     (the whole of building the loop with --resume, and the checkpointer's
+     host read within it);
+  7. print the card's name and power limit and the kernels' JSON line, then
      the result line.
 
 It imports nothing of JAX or of the JAX package ``repro``. Without a CUDA
@@ -209,6 +225,11 @@ def check_kernels(errs):
             g = randn(gen, dm + 1, dtype=dtype)[1:]
             compare("rmsnorm", f"rows={rows} d={dm} misaligned view",
                     ops.rmsnorm(x, g), rmsnorm_plain(x, g), dtype, errs)
+        # qwen3-4b's qk_norm: q (B,S,KV,G,hd) and k (B,S,KV,hd) at hd 128
+        for shape in ((2, 37, 8, 4, 128), (2, 37, 8, 128)):
+            x, g = randn(gen, *shape, dtype=dtype), randn(gen, 128, dtype=dtype)
+            compare("rmsnorm", f"qk_norm x={shape}", ops.rmsnorm(x, g),
+                    rmsnorm_plain(x, g), dtype, errs)
         for S in (8, 9, 37, 64, 256, 512):
             # the model's layouts: q (1,S,Hq,d), k/v (1,S,Hkv,d), seen as (B,H,S,d)
             q = randn(gen, 1, S, Hq, d, dtype=dtype).transpose(1, 2)
@@ -1155,6 +1176,147 @@ def train_cpu_vs_card(arch, B, S):
                 cpu_s=tc, card_s=tg)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: checkpoints on disk, cold restarts, serving the restored weights
+# ---------------------------------------------------------------------------
+
+CKPT_STEPS = 4
+TINY_STEPS = 60
+
+
+def same_loop_state(a, b, where):
+    """Two TrainLoops hold equal params, moments and step, bit for bit."""
+    from repro_torch.training.optimizer import tree_leaves
+
+    pairs = list(zip(tree_leaves(a.params), tree_leaves(b.params))) + list(
+        zip(tree_leaves(a.opt_state), tree_leaves(b.opt_state)))
+    assert len(pairs) == len(tree_leaves(a.params)) * 3 + 1
+    for x, y in pairs:
+        assert x.dtype == y.dtype and x.shape == y.shape, where
+        assert torch.equal(x, y.to(x.device)), f"{where}: a leaf differs"
+    assert a.step_idx == b.step_idx, where
+    assert a.params["embed"].dtype == torch.bfloat16
+    assert a.opt_state["mu"]["embed"].dtype == torch.float32
+
+
+def checkpoint_phase():
+    """Train full-width dcache-agent-150m through the launcher with one
+    save at the end, restore it cold on the card and on the CPU (bit for
+    bit), serve the restored weights with exact launch counts, then run the
+    fault-tolerance example on the card."""
+    import shutil
+
+    from repro_torch.distributed import checkpoint as ckpt_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_llm, train, train_tiny
+
+    ckdir = os.path.join(ROOT, "build", "ckpt_phase6")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    argv = ["--arch", "dcache-agent-150m", "--preset", "full",
+            "--steps", str(CKPT_STEPS), "--batch", str(TRAIN_B),
+            "--seq", str(TRAIN_S), "--lr", "1e-3", "--ckpt-dir", ckdir,
+            "--ckpt-every", "0"]
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    loop = train.main(argv)
+    train_s = time.perf_counter() - t0
+    assert ops.launch_counts() == before, "training launched a hand-written kernel"
+    assert all(map(math.isfinite, loop.history)), "a loss is not finite"
+    ck = loop.ckpt
+    assert ck.available_steps() == [CKPT_STEPS], "not exactly one checkpoint"
+    step_dir = ck._step_dir(CKPT_STEPS)
+    disk = sum(os.path.getsize(os.path.join(step_dir, f))
+               for f in os.listdir(step_dir))
+    sv = dict(ck.last_save)
+    # the save's first part, the JAX-layout stack on the card, runs before
+    # the checkpointer's clock starts: time it again on the saved state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop._ckpt_tree()
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    save_s = layout_s + sv["snapshot_s"] + sv["write_s"]
+    m = dict(codec=ck.codec, zstandard_present=ckpt_mod.zstandard is not None,
+             steps=CKPT_STEPS, train_s=train_s, losses=loop.history,
+             bytes_on_disk=disk, shard_bytes=sv["bytes"],
+             raw_bytes=sv["raw_bytes"], layout_s=layout_s,
+             snapshot_s=sv["snapshot_s"], write_s=sv["write_s"],
+             save_s=save_s, save_mb_s=sv["raw_bytes"] / 1e6 / save_s)
+    log(f"  trained {CKPT_STEPS} steps at {TRAIN_B}x{TRAIN_S} through "
+        f"launch.train in {train_s:.2f} s (loss {loop.history[0]:.3f} -> "
+        f"{loop.history[-1]:.3f}); one save at step {CKPT_STEPS}, codec "
+        f"{ck.codec} (zstandard {'present' if m['zstandard_present'] else 'absent'})"
+        f": {disk} bytes on disk ({sv['raw_bytes']} bytes of msgpack, ratio "
+        f"{sv['bytes'] / sv['raw_bytes']:.3f}); JAX-layout stack on the card "
+        f"{layout_s:.3f} s (timed again on the saved state), copy to the "
+        f"host {sv['snapshot_s']:.3f} s, write {sv['write_s']:.2f} s (pack, "
+        f"compress, digest, rename); save {save_s:.2f} s = "
+        f"{m['save_mb_s']:.1f} MB/s of msgpack")
+
+    restored = {}
+    for dev in ("cuda", "cpu"):
+        # the whole cold restart: init, then restore_if_available (both
+        # digest passes, inflate, unpack, copy to the device)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop2, data = train.build(train.parse_args(
+            argv + ["--resume", "--device", dev]))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        data.close()
+        r = dict(loop2.ckpt.last_restore)
+        same_loop_state(loop2, loop, f"cold restart on {dev}")
+        assert loop2.params["embed"].device.type == dev
+        restored[dev] = loop2
+        # Checkpointer.restore's own clock: its digest pass, inflate, unpack
+        m[f"restore_{dev}"] = dict(r, host_read_s=r["seconds"], seconds=wall,
+                                   mb_s=r["raw_bytes"] / 1e6 / wall)
+        log(f"  cold restart with --resume on {dev}: {wall:.2f} s = "
+            f"{m[f'restore_{dev}']['mb_s']:.1f} MB/s of msgpack (init, both "
+            f"digest passes, inflate, unpack, copy to {dev}); of it "
+            f"Checkpointer.restore's host read {r['seconds']:.2f} s (its "
+            f"digest pass {r['valid_s']:.2f} s); params (bf16), mu/nu (fp32) "
+            f"and step {loop2.step_idx} equal to the saved ones bit for bit")
+    del restored["cpu"]
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    cfg = loop.cfg
+    ops.reset_launch_counts()
+    eng, reqs = serve_llm.serve(cfg, restored["cuda"].params, serve_llm.PROMPTS,
+                                device="cuda")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    expected = expected_launches(cfg, eng.prefills, eng.steps)
+    assert all(r.done for r in reqs) and len(reqs) == 8, "unfinished requests"
+    log(f"  served the restored params: prefills={eng.prefills} "
+        f"decode_steps={eng.steps} launches={counts} expected={expected}")
+    assert counts == expected, "launch counts differ from the main path's"
+    _, reqs0 = serve_llm.serve(cfg, loop.params, serve_llm.PROMPTS, device="cuda")
+    assert [r.out_ids for r in reqs] == [r.out_ids for r in reqs0], \
+        "the restored weights generate other tokens than the saved ones"
+    m["serve_launches"] = counts
+    del loop, restored, eng
+    free_card()
+
+    t0 = time.perf_counter()
+    tiny = train_tiny.main(["--steps", str(TINY_STEPS)])
+    tiny_s = time.perf_counter() - t0
+    fails = tiny["failures"]
+    assert [f["restored"] for f in fails] == [True, True], \
+        f"failures not recovered from disk: {fails}"
+    assert tiny["restarted"].step_idx == TINY_STEPS, "cold restart is short"
+    assert tiny["loop"].params["embed"].is_cuda
+    m["train_tiny"] = dict(steps=TINY_STEPS, fail_at=tiny["fail_at"],
+                           failures=fails, kept=tiny["kept"], seconds=tiny_s,
+                           losses=tiny["loop"].history)
+    log(f"  train_tiny on the card ({tiny['loop'].cfg.name}, {TINY_STEPS} "
+        f"steps): failures at {tiny['fail_at']} recovered from disk, kept "
+        f"{tiny['kept']}, cold restart at step {TINY_STEPS}; {tiny_s:.2f} s")
+    return counts, m
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1226,6 +1388,14 @@ def main() -> int:
         free_card()
     training["phase_s"] = time.perf_counter() - t5
 
+    log("phase 6: checkpoints, cold restarts, serving the restored weights")
+    t6 = time.perf_counter()
+    c, ckpt = checkpoint_phase()
+    for k, v in c.items():
+        counts[k] = counts.get(k, 0) + v
+    free_card()
+    ckpt["phase_s"] = time.perf_counter() - t6
+
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -1235,6 +1405,13 @@ def main() -> int:
         f"busy={100 * training['busy']:.1f}% "
         f"launch_api_calls={training['launch_api_calls']:.0f} "
         f"model_flop_share={100 * training['mfu']:.2f}% of 989 TFLOP/s")
+    rc, rg = ckpt["restore_cpu"], ckpt["restore_cuda"]
+    log(f"card: {card} | checkpoint dcache-agent-150m ({ckpt['codec']}): "
+        f"bytes_on_disk={ckpt['bytes_on_disk']} save_s={ckpt['save_s']:.2f} "
+        f"save_MB_s={ckpt['save_mb_s']:.1f} cold_restart_s cuda={rg['seconds']:.2f} "
+        f"cpu={rc['seconds']:.2f} cold_restart_MB_s cuda={rg['mb_s']:.1f} "
+        f"cpu={rc['mb_s']:.1f} host_read_s cuda={rg['host_read_s']:.2f} "
+        f"cpu={rc['host_read_s']:.2f} phase_s={ckpt['phase_s']:.1f}")
     for name, sv in serve.items():
         log(f"card: {card} | {name} serving tok/s={sv['tok_s']:.1f} "
             f"mean_ttft_ms={sv['mean_ttft_ms']:.2f} "
@@ -1255,7 +1432,8 @@ def main() -> int:
            "wkv": ("src/repro_torch/kernels/csrc/rwkv_wkv.cu",
                    "src/repro/kernels/rwkv_wkv.py:56")}
     # launches: summed over the three served paths, the paged phase and
-    # the serving of the trained weights, each counted from zero
+    # the serving of the trained and of the restored weights, each counted
+    # from zero
     kernels = [{"name": n, "route": "cuda", "source": src[n][0],
                 "replaces": src[n][1], "launches": counts[n],
                 "max_abs_err": errs[n], "ms": timing[n]["ms"],
@@ -1264,7 +1442,7 @@ def main() -> int:
                 "bound_by": timing[n]["bound_by"],
                 "library_ms": timing[n]["library_ms"]} for n in src]
     result = {"card": card, "serving": serve, "paged": paged,
-              "training": training, "timing": timing,
+              "training": training, "checkpoint": ckpt, "timing": timing,
               "max_abs_err": errs, "kernels": kernels,
               "command_s": time.perf_counter() - t_start}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -1,4 +1,4 @@
-"""Bring JAX-initialised weights into the port.
+"""Move weights between the port's layout and the JAX package's.
 
 ``params_from_numpy`` takes the JAX parameter tree as numpy arrays (what
 ``unbox(init_model(...))[0]`` gives after ``np.asarray`` on every leaf) and
@@ -8,6 +8,15 @@ and likewise ``dec/tm/*`` and ``dec/cm/*`` for the ssm family (rwkv6).
 bf16 comes across through float32, which is exact in both directions. Any
 tree of the params' structure comes across the same way: a gradient tree,
 or with ``dtype=torch.float32`` the fp32 optimizer moments.
+
+``to_jax_layout`` is the inverse on tensors: it stacks layer ``l``'s
+``attn/wq`` back into ``dec/attn/wq`` with a leading L, and
+``from_jax_layout`` takes a tree of that layout (a restored checkpoint) to
+the port's again, with each layer a view of the stacked tensor. Both keep
+dtypes (bf16 stays bf16) and devices. ``param_shapes`` and ``param_axes``
+give the JAX layout's shapes and logical sharding axes, what
+``unbox(init_model(Init(..., abstract=True), cfg))`` gives, from the config
+alone.
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.rwkv import LORA_RANK
 
 
 def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -27,28 +37,104 @@ def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.tensor(arr).to(dtype=dtype, device=device)
 
 
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "ssm"):
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+
+
 def params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None,
                       dtype: Optional[torch.dtype] = None) -> Dict:
     """The port's parameters from the JAX dense- or ssm-family tree, in
     ``dtype`` (``cfg``'s model dtype unless given)."""
-    if cfg.family not in ("dense", "ssm"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    _check_family(cfg)
     dev = resolve_device(device)
     dt = cfg.torch_dtype if dtype is None else dtype
+    return from_jax_layout(_dict_map(lambda a: _tensor(a, dt, dev), tree), cfg)
+
+
+def to_jax_layout(params: Mapping, cfg: ModelConfig) -> Dict:
+    """A tree of the port's params structure (params, gradients or a
+    moment) in the JAX layout: ``layers`` stacked into ``dec``."""
+    _check_family(cfg)
+    layers = params["layers"]
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["dec"] = {
+        k: ({n: torch.stack([lp[k][n] for lp in layers]) for n in v}
+            if isinstance(v, dict) else torch.stack([lp[k] for lp in layers]))
+        for k, v in layers[0].items()}
+    return out
+
+
+def from_jax_layout(tree: Mapping, cfg: ModelConfig) -> Dict:
+    """The inverse of ``to_jax_layout``: ``dec`` split into ``layers``."""
+    _check_family(cfg)
     dec = tree["dec"]
-    p: Dict = {
-        "embed": _tensor(tree["embed"], dt, dev),
-        "final_norm": _tensor(tree["final_norm"], dt, dev),
-    }
-    if "unembed" in tree:
-        p["unembed"] = _tensor(tree["unembed"], dt, dev)
-    groups = ("tm", "cm") if cfg.family == "ssm" else ("attn", "mlp")
-    layers = []
-    for l in range(cfg.n_layers):
-        lp = {"norm1": _tensor(dec["norm1"][l], dt, dev),
-              "norm2": _tensor(dec["norm2"][l], dt, dev)}
-        for grp in groups:
-            lp[grp] = {k: _tensor(v[l], dt, dev) for k, v in dec[grp].items()}
-        layers.append(lp)
-    p["layers"] = layers
+    out = {k: v for k, v in tree.items() if k != "dec"}
+    out["layers"] = [
+        {k: ({n: t[l] for n, t in v.items()} if isinstance(v, dict) else v[l])
+         for k, v in dec.items()}
+        for l in range(cfg.n_layers)]
+    return out
+
+
+def _param_specs(cfg: ModelConfig) -> Dict:
+    """(shape, axes) of every leaf of the JAX layout, as the reference's
+    ``init_model``, ``init_attention``, ``init_mlp``, ``init_time_mix`` and
+    ``init_channel_mix`` declare them."""
+    _check_family(cfg)
+    L, D, V, F = cfg.n_layers, cfg.d_model, cfg.padded_vocab, cfg.d_ff
+    LE = ("layers", "embed")
+    p = {"embed": ((V, D), ("vocab", "embed")), "final_norm": ((D,), ("embed",))}
+    if not cfg.tie_embeddings:
+        p["unembed"] = ((D, V), ("embed", "vocab"))
+    dec: Dict = {"norm1": ((L, D), LE), "norm2": ((L, D), LE)}
+    if cfg.family == "ssm":
+        H, hd, r = cfg.n_ssm_heads, cfg.ssm.head_dim, LORA_RANK
+        tm: Dict = {"w0": ((L, D), LE)}
+        for n in ("x", "w", "k", "v", "r", "g"):
+            tm[f"mu_{n}"] = ((L, D), LE)
+        for n in ("w", "k", "v", "r", "g"):
+            tm[f"la_{n}"] = ((L, D, r), LE + ("lora",))
+            tm[f"lb_{n}"] = ((L, r, D), ("layers", "lora", "embed"))
+        for n in ("wr", "wk", "wv", "wg"):
+            tm[n] = ((L, D, H * hd), LE + ("ssm_dim",))
+        tm["wo"] = ((L, H * hd, D), ("layers", "ssm_dim", "embed"))
+        tm["u"] = ((L, H, hd), ("layers", "", ""))
+        tm["ln_x"] = ((L, H * hd), ("layers", "ssm_dim"))
+        dec["tm"] = tm
+        dec["cm"] = {"mu_k": ((L, D), LE), "mu_r": ((L, D), LE),
+                     "wk": ((L, D, F), LE + ("mlp",)),
+                     "wv": ((L, F, D), ("layers", "mlp", "embed")),
+                     "wr": ((L, D, D), LE + ("act_embed",))}
+    else:
+        hq, hd, kv = cfg.n_attn_heads, cfg.head_dim_, cfg.n_kv_heads
+        attn = {"wq": ((L, D, hq * hd), LE + ("heads",)),
+                "wk": ((L, D, kv * hd), LE + ("kv",)),
+                "wv": ((L, D, kv * hd), LE + ("kv",)),
+                "wo": ((L, hq * hd, D), ("layers", "heads", "embed"))}
+        if cfg.qk_norm:
+            attn["q_norm"] = attn["k_norm"] = ((L, hd), ("layers", ""))
+        mlp = {"w_up": ((L, D, F), LE + ("mlp",)),
+               "w_down": ((L, F, D), ("layers", "mlp", "embed"))}
+        if cfg.act == "swiglu":
+            mlp["w_gate"] = ((L, D, F), LE + ("mlp",))
+        dec["attn"], dec["mlp"] = attn, mlp
+    p["dec"] = dec
     return p
+
+
+def _dict_map(fn, tree: Mapping) -> Dict:
+    """fn over the leaves of a tree of nested dicts."""
+    return {k: _dict_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """The shape of every leaf of the JAX layout, from ``cfg`` alone."""
+    return _dict_map(lambda s: s[0], _param_specs(cfg))
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of every leaf of the JAX layout (the axes tree of
+    ``unbox(init_model(...))``), from ``cfg`` alone."""
+    return _dict_map(lambda s: s[1], _param_specs(cfg))

@@ -13,6 +13,7 @@ from repro_torch.configs.shapes import alloc_cache, effective_cache_len  # noqa:
 
 _ARCH_MODULES: Dict[str, str] = {
     "dcache-agent-150m": "dcache_agent_150m",
+    "qwen3-4b": "qwen3_4b",
     "rwkv6-7b": "rwkv6_7b",
 }
 

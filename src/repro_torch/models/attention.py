@@ -24,35 +24,43 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import init_param, rope
+from repro_torch.models.common import init_param, rms_norm, rope
 
 NEG_INF = -1e30
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.qkv_bias or cfg.qk_norm:
-        raise NotImplementedError("qkv_bias / qk_norm attention is not ported yet")
+    if cfg.qkv_bias:
+        raise NotImplementedError("qkv_bias attention is not ported yet")
     if cfg.is_encdec:
         raise NotImplementedError("cross-attention is not ported yet")
 
 
 def init_attention(cfg: ModelConfig, generator: torch.Generator,
                    device: torch.device) -> Dict[str, torch.Tensor]:
-    """One layer's projections, in the JAX (d_in, d_out) orientation."""
+    """One layer's projections, in the JAX (d_in, d_out) orientation, and
+    with ``cfg.qk_norm`` the per-head gains ``q_norm`` and ``k_norm``."""
     _check_supported(cfg)
     hq, d, hd, kv = cfg.n_attn_heads, cfg.d_model, cfg.head_dim_, cfg.n_kv_heads
     dt = cfg.torch_dtype
-    return {
+    p = {
         "wq": init_param((d, hq * hd), generator, dt, device),
         "wk": init_param((d, kv * hd), generator, dt, device),
         "wv": init_param((d, kv * hd), generator, dt, device),
         "wo": init_param((hq * hd, d), generator, dt, device,
                          scale=1.0 / max(cfg.n_layers, 1) ** 0.5),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dt, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=dt, device=device)
+    return p
 
 
-def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor):
-    """Returns q (B,S,KV,G,hd), k,v (B,S,KV,hd); head h = kv*G + g."""
+def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
+                 is_train: bool = False):
+    """Returns q (B,S,KV,G,hd), k,v (B,S,KV,hd); head h = kv*G + g. With
+    ``q_norm`` in p, q and k are RMS-normalised over the head dim (the
+    rmsnorm kernel when serving on the card)."""
     _check_supported(cfg)
     hd, kvh = cfg.head_dim_, cfg.n_kv_heads
     q = x @ p["wq"]
@@ -60,8 +68,11 @@ def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor):
     v = x @ p["wv"]
     B, S = x.shape[:2]
     g = q.shape[-1] // hd // kvh
-    return (q.view(B, S, kvh, g, hd), k.view(B, S, kvh, hd),
-            v.view(B, S, kvh, hd))
+    q, k = q.view(B, S, kvh, g, hd), k.view(B, S, kvh, hd)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps, is_train=is_train)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps, is_train=is_train)
+    return q, k, v.view(B, S, kvh, hd)
 
 
 def _mask(qpos: torch.Tensor, kpos: torch.Tensor,
@@ -115,7 +126,7 @@ def attend(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     (B,S,KV*hd) for the prefill cache."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
-    q, k, v = _project_qkv(p, cfg, x)
+    q, k, v = _project_qkv(p, cfg, x, is_train=is_train)
     pos = torch.arange(S, dtype=torch.int32, device=x.device)
     q = rope(q.reshape(B, S, -1, hd), pos, cfg.rope_theta)   # (B,S,Hq,hd)
     k = rope(k, pos, cfg.rope_theta)                         # (B,S,KV,hd)

@@ -2,6 +2,11 @@
 grads -> AdamW) with optional gradient accumulation, checkpoint/restore
 hooks and a supervisor that retries a failed step.
 
+Checkpoints hold the JAX package's tree, ``{"params", "opt_state": {"mu",
+"nu", "step"}, "meta": {"step"}}`` with layer-stacked leaves
+(``bridge.to_jax_layout``), so a file this loop writes is one the
+reference's ``TrainLoop`` restores, and the other way round.
+
 The step runs eagerly. It differentiates ``loss_fn``, whose forward takes
 the training route on any device (no hand-written kernel: they have no
 backward). Parameters outside a step are plain leaf tensors with
@@ -14,6 +19,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch.bridge import from_jax_layout, param_shapes, to_jax_layout
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.fault_tolerance import WorkerFailure
 from repro_torch.models.model import loss_fn
@@ -92,28 +98,45 @@ class TrainLoop:
         self.step_idx = 0
         self.history: list = []
 
+    def _ckpt_tree(self) -> Dict[str, Any]:
+        """The checkpoint's tree, in the JAX layout."""
+        o = self.opt_state
+        return {"params": to_jax_layout(self.params, self.cfg),
+                "opt_state": {"step": o["step"],
+                              "mu": to_jax_layout(o["mu"], self.cfg),
+                              "nu": to_jax_layout(o["nu"], self.cfg)},
+                "meta": {"step": self.step_idx}}
+
+    def _ckpt_like(self) -> Dict[str, Any]:
+        """The checkpoint tree's structure, from the config alone (restore
+        reads only its paths)."""
+        def struct(tree):
+            return {k: struct(v) if isinstance(v, dict) else 0
+                    for k, v in tree.items()}
+        p = struct(param_shapes(self.cfg))
+        return {"params": p, "opt_state": {"step": 0, "mu": p, "nu": p},
+                "meta": {"step": 0}}
+
     def restore_if_available(self) -> bool:
         if self.ckpt is None:
             return False
-        like = {"params": self.params, "opt_state": self.opt_state,
-                "meta": {"step": 0}}
-        restored = self.ckpt.restore_latest(like=like)
+        restored = self.ckpt.restore_latest(like=self._ckpt_like())
         if restored is None:
             return False
         as_like = lambda p, r: torch.as_tensor(  # noqa: E731
             r, device=p.device).to(p.dtype)
-        self.params = tree_map(as_like, self.params, restored["params"])
+        port = lambda t: from_jax_layout(t, self.cfg)  # noqa: E731
+        ro = restored["opt_state"]
+        self.params = tree_map(as_like, self.params, port(restored["params"]))
         self.opt_state = tree_map(as_like, self.opt_state,
-                                  restored["opt_state"])
+                                  {"step": ro["step"], "mu": port(ro["mu"]),
+                                   "nu": port(ro["nu"])})
         self.step_idx = int(restored["meta"]["step"])
         return True
 
     def _checkpoint(self):
         if self.ckpt is not None:
-            self.ckpt.save(self.step_idx,
-                           {"params": self.params,
-                            "opt_state": self.opt_state,
-                            "meta": {"step": self.step_idx}})
+            self.ckpt.save(self.step_idx, self._ckpt_tree())
 
     def run(self, n_steps: int, max_retries: int = 3) -> Dict[str, Any]:
         metrics: Dict[str, Any] = {}
