@@ -5,32 +5,42 @@
 
 Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels from src/repro_torch/kernels/csrc/ and print the
-     build time and each kernel's ptxas registers, shared memory and spills;
+     build time and each kernel's ptxas registers, shared memory and spills
+     (any spill fails the run);
   2. hold each kernel against its plain PyTorch version on the card, in bf16
      (atol = rtol = 2e-2) and fp32 (1e-4, sums in another order), at the main
-     paths' shapes and ragged ones: decode rings whose length is not a
+     paths' shapes and ragged ones, at every built head dim (64 at G = 3;
+     96 and 128 at G = 4 and G = 1): decode rings whose length is not a
      multiple of the split (C = 100) and whose splits are wholly masked or
      empty, windows that end inside a split, prompts whose packed rows cross
-     the S*G edge, S = 512 (the engine's max_len); the int8 decode kernel
-     on rings of 64, 100 and 512 slots at G = 3 and 16, with windows,
-     chunks, and a ring holding empty (scale 0) and prefill-pad (scale 1.0)
-     slots; rmsnorm at d 100, on views off 16 bytes (its scalar path) and
-     at qwen3-4b's qk_norm shapes (q (2,37,8,4,128), k (2,37,8,128)),
-     its C++ launch geometry equal to kernels/rmsnorm.py's; WKV around its
+     the S*G edge, S = 512 (the engine's max_len); G = 16 at d 64; the int8
+     decode kernel on rings of 64, 100 and 512 slots at G = 3 and 16 (d 64)
+     and G = 1, 4 and 16 (d 96, 128), with windows, chunks, and a ring
+     holding empty (scale 0) and prefill-pad (scale 1.0) slots; a head dim
+     that is not built (80), and an fp32 decode at d 128 with G = 32 (over
+     the kernel's G <= 20 there), must raise and launch nothing; rmsnorm at
+     d 100, on views off 16 bytes (its scalar path) and at qwen3-4b's
+     qk_norm shapes (q (2,37,8,4,128), k (2,37,8,128)), its C++ launch
+     geometry equal to kernels/rmsnorm.py's; WKV around its
      staged chunk of T steps (T - 1, T, T + 1), at S = 512, from a random
      state and in place, its state bit-identical to the plain version's. A
      misaligned view of an attention (bf16 or int8) or WKV input must raise
      and launch nothing. Time kernel, plain version and the library call
-     (CUDA events, median of 50) at the main paths' shapes, prefill also at
+     (CUDA events, median of 50) at each served path's shapes (dcache,
+     qwen3-4b, phi3-mini-3.8b, qwen1.5-32b's decode), prefill also at
      S = 512, and an empty kernel (the launch floor);
-  3. serve three paths at full width in bf16, each with random weights from
+  3. serve seven paths at full width in bf16, each with random weights from
      a seeded torch.Generator, through ServingEngine(max_batch=4,
      max_len=512) (8 prompts x 32 new tokens) and then one
      TorchLLM.complete: dcache-agent-150m (dense: rmsnorm, prefill and
      decode attention), dcache-agent-150m with kv_quant (the int8 KV cache:
-     every decode attention launch is the int8 kernel's) and rwkv6-7b (ssm:
-     rmsnorm and the WKV kernel). The launch counters are reset before each
-     path and must then equal the exact numbers the path implies. Profile a
+     every decode attention launch is the int8 kernel's), rwkv6-7b (ssm:
+     rmsnorm and the WKV kernel), qwen3-4b (d 128, G 4, qk_norm on the
+     rmsnorm kernel), granite-3-2b (d 64, G 4, tied), phi3-mini-3.8b (d 96,
+     MHA) and qwen1.5-32b (d 128, MHA, QKV bias; 70.4 GB of weights, its
+     depth cut only if the card's free memory cannot hold them). The launch
+     counters are reset before each path and must then equal the exact
+     numbers the path implies. Profile a
      decode step, a prefill (each kernel's device time per launch in them,
      the launch API calls per call) and the unembed (held against an fp32
      product within 1e-3); record the KV cache's bytes on the card;
@@ -40,7 +50,8 @@ Phases (any failure exits non-zero; nothing is caught):
      pages and copy the tail, and paged_decode_attention (the decode kernel
      on the gathered view) must equal its plain version, with exact launch
      counts;
-  4. for each served path, the full-width weights cut to 2 layers, in fp32,
+  4. for the first three paths, qwen3-4b and phi3-mini-3.8b (every head dim
+     and group of phase 3), the full-width weights cut to 2 layers, in fp32,
      on the CPU (plain versions) and on the card (kernels): prefill + 8
      greedy decode steps on 3 prompts; logits within 1e-3 and the same greedy
      tokens (or a top-2 gap within the tolerance where a token differs); the
@@ -90,6 +101,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -100,6 +112,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
+from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.launch.serve import PROMPTS  # noqa: E402
 
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
@@ -183,6 +196,11 @@ def bound_ms(nbytes, flops, dtype):
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
+# kernel -> last dimension held (head dim; row width for rmsnorm) -> dtype
+# -> max abs error against the plain version
+HELD = {}
+
+
 def compare(name, case, out, gold, dtype, errs):
     err = (out.float() - gold.float()).abs().max().item()
     tol = TOL[dtype]
@@ -192,6 +210,8 @@ def compare(name, case, out, gold, dtype, errs):
     if not ok:
         raise AssertionError(f"{name} {case}: kernel disagrees with plain version")
     errs[name] = max(errs.get(name, 0.0), err)
+    by = HELD.setdefault(name, {}).setdefault(out.shape[-1], {})
+    by[str(dtype)[6:]] = max(by.get(str(dtype)[6:], 0.0), err)
 
 
 def randn(gen, *shape, dtype):
@@ -204,12 +224,9 @@ def randn(gen, *shape, dtype):
 
 def check_kernels(errs):
     from repro_torch.kernels import ops
-    from repro_torch.kernels.decode_attention import decode_attention_plain
-    from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.rmsnorm import rmsnorm_plain
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    B, Hq, Hkv, d = 4, 12, 4, 64
     check_rmsnorm_geometry()
     for dtype in (torch.bfloat16, torch.float32):
         # d 100 in bf16 is not a multiple of 8: the scalar path
@@ -230,45 +247,66 @@ def check_kernels(errs):
             x, g = randn(gen, *shape, dtype=dtype), randn(gen, 128, dtype=dtype)
             compare("rmsnorm", f"qk_norm x={shape}", ops.rmsnorm(x, g),
                     rmsnorm_plain(x, g), dtype, errs)
-        for S in (8, 9, 37, 64, 256, 512):
-            # the model's layouts: q (1,S,Hq,d), k/v (1,S,Hkv,d), seen as (B,H,S,d)
-            q = randn(gen, 1, S, Hq, d, dtype=dtype).transpose(1, 2)
-            k = randn(gen, 1, S, Hkv, d, dtype=dtype).transpose(1, 2)
-            v = randn(gen, 1, S, Hkv, d, dtype=dtype).transpose(1, 2)
-            for mask, kw in (("causal", {}), ("window16", {"window": 16}),
-                             ("chunk32", {"chunk": 32}),
-                             ("full", {"causal": False})):
-                compare("flash_attention", f"S={S} {mask}",
-                        ops.flash_attention(q, k, v, **kw),
-                        flash_attention_plain(q, k, v, **kw), dtype, errs)
-        # C = 100: not a multiple of the 8 splits, the last range is short;
-        # C = 512 with pos in {0, 1, 63, 64}: whole splits masked or empty
-        for C in (64, 100, 512):
-            kc = randn(gen, B, C, Hkv * d, dtype=dtype)   # the cache slice
-            vc = randn(gen, B, C, Hkv * d, dtype=dtype)
-            k = kc.view(B, C, Hkv, d).transpose(1, 2)
-            v = vc.view(B, C, Hkv, d).transpose(1, 2)
-            q = randn(gen, B, Hq, d, dtype=dtype)
-            pcases = [("pos<C", [0, 5, 17, C // 2]), ("pos=C-1", [C - 1] * B),
-                      ("pos>2C", [2 * C + 1, 2 * C + 7, 3 * C + 3, 5 * C])]
-            if C == 512:
-                pcases.append(("pos={0,1,63,64}", [0, 1, 63, 64]))
-            for pcase, pos in pcases:
-                p = torch.tensor(pos, dtype=torch.int32, device="cuda")
-                for mask, kw in (("none", {}), ("window48", {"window": 48}),
-                                 ("chunk32", {"chunk": 32})):
-                    compare("decode_attention", f"C={C} {pcase} {mask}",
-                            ops.decode_attention(q, k, v, p, **kw),
-                            decode_attention_plain(q, k, v, p, **kw), dtype, errs)
-            # a window that ends inside a split (64 slots each at C = 512)
-            p = torch.tensor([100, 300, 700, 1000], dtype=torch.int32, device="cuda")
-            compare("decode_attention", f"C={C} window40 ends mid-split",
-                    ops.decode_attention(q, k, v, p, window=40),
-                    decode_attention_plain(q, k, v, p, window=40), dtype, errs)
+        # each served path's head dim and heads: dcache-agent-150m (d 64, 12
+        # over 4), granite-3-2b (d 64, 32 over 8), qwen3-4b (d 128, 32 over
+        # 8), phi3-mini-3.8b (d 96, 32 MHA), qwen1.5-32b (d 128, 40 MHA);
+        # and d 96 at G = 4, which no path serves
+        for d, Hq, Hkv in ((64, 12, 4), (64, 32, 8), (128, 32, 8), (96, 32, 32),
+                           (128, 40, 40), (96, 16, 4)):
+            check_attention(gen, dtype, d, Hq, Hkv, errs)
         check_group16(gen, dtype, errs)
-        check_int8(gen, dtype, errs)
+        for d in HEAD_DIMS:
+            check_int8(gen, dtype, d, errs)
         check_misaligned(gen, dtype)
+        check_refused(gen, dtype)
     check_wkv(errs)
+
+
+def check_attention(gen, dtype, d, Hq, Hkv, errs):
+    """Flash and decode attention at head dim d and group Hq / Hkv: prompts
+    of S = 8..512 whose packed rows (S * G) cross a 64-row tile's edge,
+    under causal, window, chunk and no mask; decode rings of 64, 100 (not a
+    multiple of the 8 splits, the last range short) and 512 slots (pos in
+    {0, 1, 63, 64}: whole splits masked or empty), with windows and chunks
+    and a window that ends inside a split."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    B, tag = 4, f"d={d} G={Hq // Hkv}"
+    for S in (8, 9, 37, 64, 256, 512):
+        # the model's layouts: q (1,S,Hq,d), k/v (1,S,Hkv,d), seen as (B,H,S,d)
+        q = randn(gen, 1, S, Hq, d, dtype=dtype).transpose(1, 2)
+        k = randn(gen, 1, S, Hkv, d, dtype=dtype).transpose(1, 2)
+        v = randn(gen, 1, S, Hkv, d, dtype=dtype).transpose(1, 2)
+        for mask, kw in (("causal", {}), ("window16", {"window": 16}),
+                         ("chunk32", {"chunk": 32}),
+                         ("full", {"causal": False})):
+            compare("flash_attention", f"{tag} S={S} {mask}",
+                    ops.flash_attention(q, k, v, **kw),
+                    flash_attention_plain(q, k, v, **kw), dtype, errs)
+    for C in (64, 100, 512):
+        kc = randn(gen, B, C, Hkv * d, dtype=dtype)   # the cache slice
+        vc = randn(gen, B, C, Hkv * d, dtype=dtype)
+        k = kc.view(B, C, Hkv, d).transpose(1, 2)
+        v = vc.view(B, C, Hkv, d).transpose(1, 2)
+        q = randn(gen, B, Hq, d, dtype=dtype)
+        pcases = [("pos<C", [0, 5, 17, C // 2]), ("pos=C-1", [C - 1] * B),
+                  ("pos>2C", [2 * C + 1, 2 * C + 7, 3 * C + 3, 5 * C])]
+        if C == 512:
+            pcases.append(("pos={0,1,63,64}", [0, 1, 63, 64]))
+        for pcase, pos in pcases:
+            p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            for mask, kw in (("none", {}), ("window48", {"window": 48}),
+                             ("chunk32", {"chunk": 32})):
+                compare("decode_attention", f"{tag} C={C} {pcase} {mask}",
+                        ops.decode_attention(q, k, v, p, **kw),
+                        decode_attention_plain(q, k, v, p, **kw), dtype, errs)
+        # a window that ends inside a split (64 slots each at C = 512)
+        p = torch.tensor([100, 300, 700, 1000], dtype=torch.int32, device="cuda")
+        compare("decode_attention", f"{tag} C={C} window40 ends mid-split",
+                ops.decode_attention(q, k, v, p, window=40),
+                decode_attention_plain(q, k, v, p, window=40), dtype, errs)
 
 
 def check_rmsnorm_geometry():
@@ -328,11 +366,12 @@ def int8_ring(gen, B, C, Hkv, d, dtype):
             scales.transpose(1, 2))
 
 
-def check_int8(gen, dtype, errs):
-    """The int8 kernel against its plain version: rings of 64, 100 and 512
-    slots (whole splits masked or empty at pos in {0, 1, 63, 64}), G = 3
-    and G = 16, windows and chunks, and a ring whose unwritten slots carry
-    scale 0 and whose prefill pad slots carry scale 1.0."""
+def check_int8(gen, dtype, d, errs):
+    """The int8 kernel against its plain version at head dim d: rings of
+    64, 100 and 512 slots (whole splits masked or empty at pos in {0, 1,
+    63, 64}), G = 3 (d 64; G = 1 and 4 at the other head dims) and G = 16,
+    windows and chunks, and a ring whose unwritten slots carry scale 0 and
+    whose prefill pad slots carry scale 1.0."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_int8_plain
 
@@ -341,9 +380,10 @@ def check_int8(gen, dtype, errs):
                 ops.decode_attention_int8(q, k, v, ks, vs, p, **kw),
                 decode_attention_int8_plain(q, k, v, ks, vs, p, **kw), dtype, errs)
 
-    B, d = 4, 64
+    B = 4
+    groups = ((12, 4), (16, 1)) if d == 64 else ((16, 4), (8, 8), (16, 1))
     for C in (64, 100, 512):
-        for Hq, Hkv in ((12, 4), (16, 1)):
+        for Hq, Hkv in groups:
             _, _, k, ks = int8_ring(gen, B, C, Hkv, d, dtype)
             _, _, v, vs = int8_ring(gen, B, C, Hkv, d, dtype)
             q = randn(gen, B, Hq, d, dtype=dtype)
@@ -356,8 +396,8 @@ def check_int8(gen, dtype, errs):
             for pcase, pos in pcases:
                 p = torch.tensor(pos, dtype=torch.int32, device="cuda")
                 for mask, kw in masks if Hkv == 4 else masks[1:2]:
-                    one(f"G={Hq // Hkv} C={C} {pcase} {mask}", q, k, v, ks, vs,
-                        p, **kw)
+                    one(f"d={d} G={Hq // Hkv} C={C} {pcase} {mask}", q, k, v,
+                        ks, vs, p, **kw)
     # the engine's ring at the start of a request: real tokens in slots
     # 0..pos, prefill pad slots (codes 0, scale 1.0), never-written slots
     # (codes 0, scale 0)
@@ -374,7 +414,8 @@ def check_int8(gen, dtype, errs):
     q = randn(gen, B, 12, d, dtype=dtype)
     out = ops.decode_attention_int8(q, k, v, ks, vs, p)
     assert torch.isfinite(out.float()).all(), "empty or pad slots gave NaN/inf"
-    one("C=512 empty (scale 0) and pad (scale 1) slots", q, k, v, ks, vs, p)
+    one(f"d={d} C=512 empty (scale 0) and pad (scale 1) slots", q, k, v, ks,
+        vs, p)
 
 
 def check_misaligned(gen, dtype):
@@ -409,6 +450,39 @@ def check_misaligned(gen, dtype):
         else:
             raise AssertionError(f"{name}: a misaligned view did not raise")
     assert ops.launch_counts() == before, "a misaligned view launched a kernel"
+
+
+def check_refused(gen, dtype):
+    """On the card a head dim outside HEAD_DIMS (here 80) raises in each
+    attention wrapper before any launch, with no fallback; so does an fp32
+    decode at d 128 with G = 32 (the kernel's error code: fp32 at d 96 and
+    128 takes G <= 20)."""
+    from repro_torch.kernels import ops
+
+    q = randn(gen, 1, 8, 16, 80, dtype=dtype).transpose(1, 2)
+    k = randn(gen, 1, 8, 4, 80, dtype=dtype).transpose(1, 2)
+    codes = torch.zeros((1, 4, 8, 80), dtype=torch.int8, device="cuda")
+    scales = torch.ones((1, 4, 8), dtype=dtype, device="cuda")
+    p = torch.zeros(1, dtype=torch.int32, device="cuda")
+    before = ops.launch_counts()
+    calls = [("flash_attention", ValueError, lambda: ops.flash_attention(q, k, k)),
+             ("decode_attention", ValueError,
+              lambda: ops.decode_attention(q[:, :, 0], k, k, p)),
+             ("decode_attention_int8", ValueError, lambda: ops.decode_attention_int8(
+                 q[:, :, 0].contiguous(), codes, codes, scales, scales, p))]
+    if dtype == torch.float32:
+        q32 = randn(gen, 1, 32, 128, dtype=dtype)
+        k32 = randn(gen, 1, 1, 64, 128, dtype=dtype)
+        calls.append(("decode_attention", RuntimeError,
+                      lambda: ops.decode_attention(q32, k32, k32, p)))
+    for name, exc, call in calls:
+        try:
+            call()
+        except exc as e:
+            log(f"  {name} refused {str(dtype)[6:]}: raised ({e})")
+        else:
+            raise AssertionError(f"{name}: an unbuilt shape did not raise")
+    assert ops.launch_counts() == before, "a refused shape launched a kernel"
 
 
 def wkv_inputs(gen, B, S, H, hd, dtype):
@@ -468,13 +542,86 @@ def check_wkv(errs):
         same_state(f"B=4 S=1 s0 in place {name}", state, sp)
 
 
-def time_kernels():
-    """Kernel / plain / library times at the main path's shapes (bf16)."""
+def time_decode(gen, B, Hq, Hkv, C, d, int8=False):
+    """Decode attention (or its int8 variant) in bf16 at a decode step over
+    a full ring of C slots: kernel, plain version, SDPA (bf16 only), the
+    kernel's profiled device time and its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (
         decode_attention_int8_plain, decode_attention_plain, split_geometry)
+
+    dt, es = torch.bfloat16, 2
+    q = randn(gen, B, Hq, d, dtype=dt)
+    pos = torch.tensor([C + 3, C + 40, 2 * C + 5, 3 * C][:B], dtype=torch.int32,
+                       device="cuda")
+    valid = sum(min(int(p) + 1, C) for p in pos)
+    n_split, per = split_geometry(C)
+    if int8:
+        _, _, k, ks = int8_ring(gen, B, C, Hkv, d, dt)
+        _, _, v, vs = int8_ring(gen, B, C, Hkv, d, dt)
+        # q read and out written in bf16, one byte a code, es bytes a scale
+        nb = 2 * q.numel() * es + 2 * valid * Hkv * (d + es) + pos.numel() * 4
+        run = lambda: ops.decode_attention_int8(q, k, v, ks, vs, pos)  # noqa: E731
+        plain = lambda: decode_attention_int8_plain(q, k, v, ks, vs, pos)  # noqa: E731
+        shape = (f"q ({B},{Hq},{d}) bf16, int8 cache ({B},{C},{Hkv * d}) + bf16 "
+                 f"scales ({B},{C},{Hkv}), full ring; grid as decode_attention")
+        lib_ms = lib_us = None
+    else:
+        kc = randn(gen, B, C, Hkv * d, dtype=dt)
+        vc = randn(gen, B, C, Hkv * d, dtype=dt)
+        k = kc.view(B, C, Hkv, d).transpose(1, 2)
+        v = vc.view(B, C, Hkv, d).transpose(1, 2)
+        nb = (2 * q.numel() + 2 * valid * Hkv * d) * es + pos.numel() * 4
+        run = lambda: ops.decode_attention(q, k, v, pos)  # noqa: E731
+        plain = lambda: decode_attention_plain(q, k, v, pos)  # noqa: E731
+        shape = (f"q ({B},{Hq},{d}), cache ({B},{C},{Hkv * d}) bf16, full ring; "
+                 f"grid ({n_split},{Hkv},{B}), clusters of {n_split}, {per} "
+                 f"slots each")
+        kk, vv, qq = k.contiguous(), v.contiguous(), q[:, :, None]
+        mask = torch.ones((B, 1, 1, C), dtype=torch.bool, device="cuda")
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qq, kk, vv, attn_mask=mask, enable_gqa=True)
+        lib_ms, lib_us = time_ms(sdpa), all_device_us(sdpa)
+    b, by = bound_ms(nb, 4 * valid * Hq * d, dt)
+    needle = "decode_int8_kernel" if int8 else "decode_kernel"
+    return dict(shape=shape, ms=time_ms(run), plain_ms=time_ms(plain),
+                library_ms=lib_ms, library_device_us=lib_us,
+                device_us=kernel_device_us(device_profile(run, 20)[0], needle),
+                bound_ms=b, bound_by=by)
+
+
+def time_flash(gen, Hq, Hkv, S, d):
+    """Causal prefill attention in bf16 at B = 1 in the model's layouts:
+    kernel, plain version, SDPA, profiled device time and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    dt, es = torch.bfloat16, 2
+    q = randn(gen, 1, S, Hq, d, dtype=dt).transpose(1, 2)
+    k = randn(gen, 1, S, Hkv, d, dtype=dt).transpose(1, 2)
+    v = randn(gen, 1, S, Hkv, d, dtype=dt).transpose(1, 2)
+    pairs = S * (S + 1) // 2
+    nb = (2 * Hq + 2 * Hkv) * S * d * es
+    b, by = bound_ms(nb, 4 * pairs * Hq * d, dt)
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qc, kc, vc, is_causal=True, enable_gqa=True)
+    return dict(
+        shape=f"q (1,{Hq},{S},{d}), k/v (1,{Hkv},{S},{d}) bf16, causal",
+        ms=time_ms(lambda: ops.flash_attention(q, k, v)),
+        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v)),
+        library_ms=time_ms(sdpa), library_device_us=all_device_us(sdpa),
+        device_us=kernel_device_us(device_profile(
+            lambda: ops.flash_attention(q, k, v), 20)[0], "flash_kernel"),
+        bound_ms=b, bound_by=by)
+
+
+def time_kernels():
+    """Kernel / plain / library times at the main paths' shapes (bf16)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
     from repro_torch.kernels.rmsnorm import rmsnorm_plain
     from repro_torch.kernels.rwkv_wkv import wkv_plain
 
@@ -497,73 +644,27 @@ def time_kernels():
             lambda: ops.rmsnorm(x, g), 20)[0], "rmsnorm_kernel"),
         bound_ms=b, bound_by=by)
 
-    # decode attention at a decode step: B=4, C=512, a full ring (pos > C)
-    B, Hq, Hkv, C, d = 4, 12, 4, 512, 64
-    kc = randn(gen, B, C, Hkv * d, dtype=dt)
-    vc = randn(gen, B, C, Hkv * d, dtype=dt)
-    k = kc.view(B, C, Hkv, d).transpose(1, 2)
-    v = vc.view(B, C, Hkv, d).transpose(1, 2)
-    q = randn(gen, B, Hq, d, dtype=dt)
-    pos = torch.tensor([C + 3, C + 40, 2 * C + 5, 3 * C], dtype=torch.int32,
-                       device="cuda")
-    valid = sum(min(int(p) + 1, C) for p in pos)
-    nb = (2 * q.numel() + 2 * valid * Hkv * d) * es + pos.numel() * 4
-    b, by = bound_ms(nb, 4 * valid * Hq * d, dt)
-    kk, vv, qq = k.contiguous(), v.contiguous(), q[:, :, None]
-    mask = torch.ones((B, 1, 1, C), dtype=torch.bool, device="cuda")
-    n_split, per = split_geometry(C)
-    rows["decode_attention"] = dict(
-        shape=f"q ({B},{Hq},{d}), cache ({B},{C},{Hkv * d}) bf16, full ring; "
-              f"grid ({n_split},{Hkv},{B}), clusters of {n_split}, {per} slots each",
-        ms=time_ms(lambda: ops.decode_attention(q, k, v, pos)),
-        plain_ms=time_ms(lambda: decode_attention_plain(q, k, v, pos)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qq, kk, vv, attn_mask=mask, enable_gqa=True)),
-        library_device_us=all_device_us(lambda: F.scaled_dot_product_attention(
-            qq, kk, vv, attn_mask=mask, enable_gqa=True)),
-        device_us=kernel_device_us(device_profile(
-            lambda: ops.decode_attention(q, k, v, pos), 20)[0], "decode_kernel"),
-        bound_ms=b, bound_by=by)
-
-    # the int8 variant at the same shape: codes and scales of a full ring.
-    # No single PyTorch call dequantizes and attends: no library time.
-    _, _, k8, ks8 = int8_ring(gen, B, C, Hkv, d, dt)
-    _, _, v8, vs8 = int8_ring(gen, B, C, Hkv, d, dt)
-    # q read and out written in bf16, one byte a code, es bytes a scale
-    nb = 2 * q.numel() * es + 2 * valid * Hkv * (d + es) + pos.numel() * 4
-    b, by = bound_ms(nb, 4 * valid * Hq * d, dt)
-    run8 = lambda: ops.decode_attention_int8(q, k8, v8, ks8, vs8, pos)  # noqa: E731
-    rows["decode_attention_int8"] = dict(
-        shape=f"q ({B},{Hq},{d}) bf16, int8 cache ({B},{C},{Hkv * d}) + bf16 "
-              f"scales ({B},{C},{Hkv}), full ring; grid as decode_attention",
-        ms=time_ms(run8),
-        plain_ms=time_ms(lambda: decode_attention_int8_plain(
-            q, k8, v8, ks8, vs8, pos)),
-        library_ms=None, library_device_us=None,
-        device_us=kernel_device_us(device_profile(run8, 20)[0],
-                                   "decode_int8_kernel"),
-        bound_ms=b, bound_by=by)
+    # decode attention at a decode step: B=4, C=512, a full ring (pos > C),
+    # at each served config's heads; the int8 variant at dcache's and
+    # qwen3-4b's (no single PyTorch call dequantizes and attends: no
+    # library time)
+    for key, Hq, Hkv, d in (("decode_attention", 12, 4, 64),
+                            ("decode_attention_qwen3", 32, 8, 128),
+                            ("decode_attention_phi3", 32, 32, 96),
+                            ("decode_attention_qwen1.5", 40, 40, 128)):
+        rows[key] = time_decode(gen, 4, Hq, Hkv, 512, d)
+    for key, Hq, Hkv, d in (("decode_attention_int8", 12, 4, 64),
+                            ("decode_attention_int8_qwen3", 32, 8, 128)):
+        rows[key] = time_decode(gen, 4, Hq, Hkv, 512, d, int8=True)
 
     # prefill attention at the commonest prompt bucket (B=1, S=64, causal)
-    # and at the engine's max_len (S=512)
-    for key, S in (("flash_attention", 64), ("flash_attention_s512", 512)):
-        q = randn(gen, 1, S, Hq, d, dtype=dt).transpose(1, 2)
-        k = randn(gen, 1, S, Hkv, d, dtype=dt).transpose(1, 2)
-        v = randn(gen, 1, S, Hkv, d, dtype=dt).transpose(1, 2)
-        pairs = S * (S + 1) // 2
-        nb = (2 * Hq + 2 * Hkv) * S * d * es
-        b, by = bound_ms(nb, 4 * pairs * Hq * d, dt)
-        qc, kc2, vc2 = q.contiguous(), k.contiguous(), v.contiguous()
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qc, kc2, vc2, is_causal=True, enable_gqa=True)
-        rows[key] = dict(
-            shape=f"q (1,{Hq},{S},{d}), k/v (1,{Hkv},{S},{d}) bf16, causal",
-            ms=time_ms(lambda: ops.flash_attention(q, k, v)),
-            plain_ms=time_ms(lambda: flash_attention_plain(q, k, v)),
-            library_ms=time_ms(sdpa), library_device_us=all_device_us(sdpa),
-            device_us=kernel_device_us(device_profile(
-                lambda: ops.flash_attention(q, k, v), 20)[0], "flash_kernel"),
-            bound_ms=b, bound_by=by)
+    # and at the engine's max_len (S=512), at each served config's heads
+    for key, Hq, Hkv, d in (("flash_attention", 12, 4, 64),
+                            ("flash_attention_qwen3", 32, 8, 128),
+                            ("flash_attention_phi3", 32, 32, 96)):
+        for S in (64, 512):
+            rows[key + ("_s512" if S == 512 else "")] = time_flash(
+                gen, Hq, Hkv, S, d)
 
     # rmsnorm at the rwkv6-7b decode step's shapes: norm1/norm2 (4,1,4096)
     # and the per-head ln_x norm, 4*64 rows of 64
@@ -645,17 +746,19 @@ def leaves(p):
 
 def expected_launches(cfg, prefills, steps):
     """Kernel launches the serving path implies: the dense decoder runs
-    rmsnorm twice a layer and once at the end, flash attention per layer at
-    each prefill and decode attention per layer at each step; rwkv6 runs
-    rmsnorm three times a layer (norm1, norm2, the per-head ln_x norm) and
-    once at the end, and the WKV kernel per layer at every prefill and step.
-    With kv_quant every decode attention launch is the int8 kernel's."""
+    rmsnorm twice a layer (four times with qk_norm: q and k too) and once
+    at the end, flash attention per layer at each prefill and decode
+    attention per layer at each step; rwkv6 runs rmsnorm three times a
+    layer (norm1, norm2, the per-head ln_x norm) and once at the end, and
+    the WKV kernel per layer at every prefill and step. With kv_quant every
+    decode attention launch is the int8 kernel's."""
     L, n = cfg.n_layers, prefills + steps
     if cfg.family == "ssm":
         return {"rmsnorm": (3 * L + 1) * n, "flash_attention": 0,
                 "decode_attention": 0, "decode_attention_int8": 0, "wkv": L * n}
     decode = "decode_attention_int8" if cfg.kv_quant else "decode_attention"
-    out = {"rmsnorm": (2 * L + 1) * n, "flash_attention": L * prefills,
+    norms = 4 if cfg.qk_norm else 2
+    out = {"rmsnorm": (norms * L + 1) * n, "flash_attention": L * prefills,
            "decode_attention": 0, "decode_attention_int8": 0, "wkv": 0}
     out[decode] = L * steps
     return out
@@ -663,6 +766,17 @@ def expected_launches(cfg, prefills, steps):
 
 def cache_bytes(cache):
     return sum(t.numel() * t.element_size() for k, t in cache.items() if k != "pos")
+
+
+def serve_bytes(cfg, max_batch=4, max_len=512):
+    """The bytes of ``cfg``'s weights and serving ring on the card, in its
+    dtype (the int8 ring of kv_quant is smaller)."""
+    from repro_torch.bridge import param_shapes
+
+    es = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    weights = sum(math.prod(s) for s in leaves(param_shapes(cfg)))
+    ring = 2 * cfg.n_layers * max_batch * max_len * cfg.n_kv_heads * cfg.head_dim_
+    return es * (weights + ring)
 
 
 def serve_full_width(arch, kv_quant=False):
@@ -674,13 +788,19 @@ def serve_full_width(arch, kv_quant=False):
     from repro_torch.serving import ServingEngine
 
     cfg = dataclasses.replace(get_config(arch), kv_quant=kv_quant)
+    free, need = torch.cuda.mem_get_info()[0], serve_bytes(cfg)
+    assert need < free, (f"{arch}: weights and ring at full depth need "
+                         f"{need / 2**30:.2f} GiB, {free / 2**30:.2f} GiB free")
+    log(f"  {arch}: weights and ring {need / 2**30:.2f} GiB of {free / 2**30:.2f} "
+        f"GiB free on the card at {cfg.n_layers} layers")
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = init_model(cfg, gen, "cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
     m = dict(arch=arch, kv_quant=kv_quant, params=n_params,
-             init_s=time.perf_counter() - t0)
+             init_s=time.perf_counter() - t0, n_layers=cfg.n_layers,
+             free_bytes=free)
     log(f"  {cfg.name}: {n_params / 1e6:.1f} M params summed from the tensors "
         f"({cfg.param_count() / 1e6:.1f} M by ModelConfig.param_count), "
         f"{cfg.dtype}, L={cfg.n_layers} d={cfg.d_model}, family {cfg.family}; "
@@ -840,8 +960,13 @@ def cpu_vs_card(arch, tol=1e-3, kv_quant=False):
     cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32",
                               kv_quant=kv_quant)
     # drawn on the card (fast) and copied to the CPU
-    gpu_params = init_model(cfg, torch.Generator(device="cuda").manual_seed(1),
-                            "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    gpu_params = init_model(cfg, gen, "cuda")
+    # QKV biases start at zero, as in JAX, which would hold nothing: noise
+    for lp in gpu_params["layers"]:
+        for b in ("bq", "bk", "bv"):
+            if b in lp.get("attn", {}):
+                lp["attn"][b].normal_(0.0, 0.5, generator=gen)
     cpu_params = tree_to(gpu_params, "cpu")
     tok = ByteTokenizer()
     ids = [tok.encode(p) for p in PROMPTS[:3]]
@@ -1343,6 +1468,9 @@ def main() -> int:
         if line.startswith("==") or "entry function" in line or "Used" in line \
                 or "spill" in line:
             log("  " + line.strip())
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas)
+    assert all(a == b == "0" for a, b in spills), "a kernel instance spills"
+    log(f"  {len(spills)} kernel instances built, none spills")
 
     log("phase 2: kernels against their plain versions on the card")
     errs = {}
@@ -1351,7 +1479,8 @@ def main() -> int:
 
     counts, serve = {}, {}
     paths = (("dcache-agent-150m", False), ("dcache-agent-150m", True),
-             ("rwkv6-7b", False))
+             ("rwkv6-7b", False), ("qwen3-4b", False), ("granite-3-2b", False),
+             ("phi3-mini-3.8b", False), ("qwen1.5-32b", False))
     for arch, kvq in paths:
         name = arch + ("+kv_quant" if kvq else "")
         log(f"phase 3: full-width serving, {name}")
@@ -1367,7 +1496,11 @@ def main() -> int:
     errs["decode_attention"] = max(errs["decode_attention"], paged["max_abs_err"])
     free_card()
 
-    for arch, kvq in paths:
+    # phase 4 covers each kernel instance's head dim and group: d 64 (dense,
+    # kv_quant), the WKV path, d 128 at G 4 with qk_norm, d 96 at G 1, and
+    # d 128 at G 1 with non-zero QKV biases
+    for arch, kvq in paths[:3] + (("qwen3-4b", False), ("phi3-mini-3.8b", False),
+                                  ("qwen1.5-32b", False)):
         name = arch + ("+kv_quant" if kvq else "")
         log(f"phase 4: CPU vs card, fp32, {name}")
         worst, ties, flips = cpu_vs_card(arch, kv_quant=kvq)
@@ -1413,9 +1546,12 @@ def main() -> int:
         f"cpu={rc['mb_s']:.1f} host_read_s cuda={rg['host_read_s']:.2f} "
         f"cpu={rc['host_read_s']:.2f} phase_s={ckpt['phase_s']:.1f}")
     for name, sv in serve.items():
-        log(f"card: {card} | {name} serving tok/s={sv['tok_s']:.1f} "
-            f"mean_ttft_ms={sv['mean_ttft_ms']:.2f} "
+        log(f"card: {card} | {name} serving L={sv['n_layers']} "
+            f"tok/s={sv['tok_s']:.1f} mean_ttft_ms={sv['mean_ttft_ms']:.2f} "
             f"decode_step_ms={sv['decode_step_ms']:.3f} "
+            f"decode_device_ms={sv['decode_device_ms']:.3f} "
+            f"prefill_device_ms={sv['prefill_device_ms']:.3f} "
+            f"kv_MiB={sv.get('kv_cache_bytes', 0) / 2**20:.1f} "
             f"decode_launch_api_calls={sv['decode_launch_api_calls']:.1f} "
             f"decode_busy={100 * sv['decode_busy']:.1f}%")
     src = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1434,16 +1570,20 @@ def main() -> int:
     # launches: summed over the three served paths, the paged phase and
     # the serving of the trained and of the restored weights, each counted
     # from zero
+    # dims_held: the head dims (row widths for rmsnorm) each kernel was held
+    # at in phase 2; the times are at dcache-agent-150m's (or rwkv6-7b's)
+    # shapes, the other served shapes' are in chip_smoke.json's "timing"
     kernels = [{"name": n, "route": "cuda", "source": src[n][0],
                 "replaces": src[n][1], "launches": counts[n],
                 "max_abs_err": errs[n], "ms": timing[n]["ms"],
                 "plain_ms": timing[n]["plain_ms"],
                 "bound_ms": timing[n]["bound_ms"],
                 "bound_by": timing[n]["bound_by"],
-                "library_ms": timing[n]["library_ms"]} for n in src]
+                "library_ms": timing[n]["library_ms"],
+                "dims_held": sorted(HELD[n])} for n in src]
     result = {"card": card, "serving": serve, "paged": paged,
               "training": training, "checkpoint": ckpt, "timing": timing,
-              "max_abs_err": errs, "kernels": kernels,
+              "max_abs_err": errs, "max_abs_err_by_dim": HELD, "kernels": kernels,
               "command_s": time.perf_counter() - t_start}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)

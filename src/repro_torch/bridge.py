@@ -112,6 +112,9 @@ def _param_specs(cfg: ModelConfig) -> Dict:
                 "wk": ((L, D, kv * hd), LE + ("kv",)),
                 "wv": ((L, D, kv * hd), LE + ("kv",)),
                 "wo": ((L, hq * hd, D), ("layers", "heads", "embed"))}
+        if cfg.qkv_bias:
+            attn["bq"] = ((L, hq * hd), ("layers", "heads"))
+            attn["bk"] = attn["bv"] = ((L, kv * hd), ("layers", "kv"))
         if cfg.qk_norm:
             attn["q_norm"] = attn["k_norm"] = ((L, hd), ("layers", ""))
         mlp = {"w_up": ((L, D, F), LE + ("mlp",)),

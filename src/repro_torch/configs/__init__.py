@@ -13,6 +13,9 @@ from repro_torch.configs.shapes import alloc_cache, effective_cache_len  # noqa:
 
 _ARCH_MODULES: Dict[str, str] = {
     "dcache-agent-150m": "dcache_agent_150m",
+    "granite-3-2b": "granite_3_2b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "qwen1.5-32b": "qwen1_5_32b",
     "qwen3-4b": "qwen3_4b",
     "rwkv6-7b": "rwkv6_7b",
 }

@@ -27,6 +27,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
+# the head dims the flash and decode attention kernels are built for
+# (csrc/common.cuh: with_head_dim); each wrapper refuses any other
+ATTENTION_HEAD_DIMS = (64, 96, 128)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

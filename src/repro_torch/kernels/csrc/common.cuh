@@ -10,9 +10,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define REPRO_NEG_INF (-1e30f)
 
 enum ReproDtype { kF32 = 0, kBF16 = 1 };
+
+// The attention kernels' built head dims (kernels/_build.py:
+// ATTENTION_HEAD_DIMS): returns f(std::integral_constant<int, d>{}), or
+// refuses any other d.
+template <typename F>
+int with_head_dim(int d, F&& f) {
+  switch (d) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

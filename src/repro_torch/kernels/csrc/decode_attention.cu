@@ -2,13 +2,19 @@
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py:
 // decode_attention / _decode_kernel.
 //
+// Head dims 64, 96 and 128 are built (one template instance each; the
+// registry's dense configs use no other).
+//
 // Bound on the H100: bytes. Every K/V slot of the (b, kv head) is read once
 // and used for G query heads, about 4*G flops per element, far below the
-// ridge. At the serving shape (B=4, Hkv=4, C=512, d=64, bf16) the whole call
-// reads 2.1 MB, under a microsecond at 3.35 TB/s, so what bounds it in
-// practice is latency: how many loads are in flight at once, and how many of
-// the 132 SMs hold them. One block per (b, kv head) walking the ring in
-// serial tiles (the first version) kept 16 SMs busy, one tile in flight each.
+// ridge. At dcache-agent-150m's serving shape (B=4, Hkv=4, C=512, d=64,
+// bf16) the whole call reads 2.1 MB, under a microsecond at 3.35 TB/s, so
+// what bounds it in practice is latency: how many loads are in flight at
+// once, and how many of the 132 SMs hold them. The larger dense configs
+// read 8.4 MB (qwen3-4b: Hkv=8, d=128), 25.2 MB (phi3-mini: Hkv=32, d=96)
+// and 41.9 MB (qwen1.5-32b: Hkv=40, d=128) a call, 2.5 to 12.5 us. One
+// block per (b, kv head) walking the ring in serial tiles (the first
+// version) kept 16 SMs busy, one tile in flight each.
 //
 // Design: split the ring across a thread-block cluster and merge in
 // distributed shared memory, in one launch.
@@ -30,8 +36,9 @@
 //   slots j and j + 32 of the tile (q, which travels with the first tile's
 //   copies, and K as 16-byte vectors from shared memory, q by broadcast;
 //   the 16-byte row padding keeps the K reads free of bank conflicts); the
-//   tile's max and sum are warp shuffles; lane j owns output columns 2j and
-//   2j+1 and takes each slot's weight by shuffle. Loops stop at the range's
+//   tile's max and sum are warp shuffles; lane j owns D / 32 output columns
+//   (Cols<D>: 2j and 2j+1 at d 64; also 64+2j and 65+2j at d 128; 64+j at
+//   d 96) and takes each slot's weight by shuffle. Loops stop at the range's
 //   last slot. m, l and acc stay fp32, with the masks of the TPU kernel bit
 //   for bit (non-negative ring modulo, floor division for chunks).
 // - Merge: each warp writes its (m, l, acc) straight into the shared memory
@@ -51,8 +58,10 @@
 // replaces the XLA chain dequantize_kv + masked softmax attention of
 // src/repro/models/attention.py:decode_attend. Same grid, cluster, masks,
 // tile skipping and merge; what differs is the tile:
-// - a 64-wide head row of codes is 64 bytes, four 16-byte cp.async copies
-//   (half the bf16 bytes), into 80-byte padded shared-memory rows;
+// - a head row of codes is D bytes, D / 16 16-byte cp.async copies (half
+//   the bf16 bytes), into D + 16-byte padded shared-memory rows (80, 112 and
+//   144 bytes: an odd number of 16-byte chunks, as the bf16 rows of 144, 208
+//   and 272 bytes are, so row reads stay free of bank conflicts);
 // - the scales (one per slot and kv head, in q's type, strided by Hkv
 //   elements) are too narrow for cp.async: each thread loads its slots'
 //   scales of the next tile into registers when it issues that tile's
@@ -71,6 +80,24 @@ namespace {
 
 constexpr int kMaxSplit = 8;   // cluster size: the largest portable one
 constexpr int kTile = 64;      // slots per shared-memory tile
+constexpr int kMaxSmem = 232448;   // the opt-in dynamic shared memory a block may use
+
+// The output columns a lane owns: D / 32 of them (2 at d 64, 3 at d 96, 4
+// at d 128). The first 64 * (D / 64) columns go in pairs, columns 64p +
+// 2 lane and 64p + 2 lane + 1 (one 4- or 8-byte access); the last 32 of a
+// D that is not a multiple of 64 go one a lane, column 64 (D / 64) + lane.
+// Either way a warp's accesses to one shared-memory row are consecutive.
+template <int D>
+struct Cols {
+  static_assert(D % 32 == 0, "a warp owns 32 or 64 columns at a time");
+  static constexpr int kPairs = D / 64;
+  static constexpr int kSingles = (D % 64) / 32;
+  static constexpr int kN = 2 * kPairs + kSingles;
+  __device__ static __forceinline__ int col(int i, int lane) {
+    return i < 2 * kPairs ? 64 * (i / 2) + 2 * lane + (i & 1)
+                          : 64 * kPairs + 32 * (i - 2 * kPairs) + lane;
+  }
+};
 
 // the cluster barrier in two halves: a relaxed arrive (no ordering of
 // earlier writes) and the wait that completes it; every thread of every
@@ -106,19 +133,20 @@ __device__ __forceinline__ bool tile_visible(int j0, int hi, int p_now, int C,
 }
 
 // Every block of the cluster has started (each arrived on the cluster
-// barrier at entry): push this warp's partial (acc over columns 2*lane and
-// 2*lane + 1, m, l) into rank 0's shared memory `part` ([n_split][G][D + 2]);
-// cluster.sync() releases it there, and no block reads another's after.
-// Rank 0 then merges the partials of head g into orow.
+// barrier at entry): push this warp's partial (acc over the lane's columns
+// Cols<D>::col, m, l) into rank 0's shared memory `part` ([n_split][G][D +
+// 2]); cluster.sync() releases it there, and no block reads another's
+// after. Rank 0 then merges the partials of head g into orow.
 template <typename T, int D>
 __device__ __forceinline__ void merge_partials(float* part, int split, int G,
                                                int g, int lane, float m, float l,
-                                               float acc0, float acc1, T* orow) {
+                                               const float* acc, T* orow) {
+  using C = Cols<D>;
   cg::cluster_group cluster = cg::this_cluster();
   cluster_wait();
   float* mine = cluster.map_shared_rank(part, 0) + (split * G + g) * (D + 2);
-  mine[2 * lane] = acc0;
-  mine[2 * lane + 1] = acc1;
+#pragma unroll
+  for (int i = 0; i < C::kN; ++i) mine[C::col(i, lane)] = acc[i];
   if (lane == 0) {
     mine[D] = m;
     mine[D + 1] = l;
@@ -134,31 +162,44 @@ __device__ __forceinline__ void merge_partials(float* part, int split, int G,
     mj[j] = j < n_part ? part[(j * G + g) * (D + 2) + D] : REPRO_NEG_INF;
     M = fmaxf(M, mj[j]);
   }
-  float num0 = 0.f, num1 = 0.f, den = 0.f;
+  float num[C::kN], den = 0.f;
+#pragma unroll
+  for (int i = 0; i < C::kN; ++i) num[i] = 0.f;
 #pragma unroll
   for (int j = 0; j < kMaxSplit; ++j) {
     if (j < n_part) {
       const float* pr = part + (j * G + g) * (D + 2);
       const float wt = expf(mj[j] - M);
       den += wt * pr[D + 1];
-      num0 += wt * pr[2 * lane];
-      num1 += wt * pr[2 * lane + 1];
+#pragma unroll
+      for (int i = 0; i < C::kN; ++i) num[i] += wt * pr[C::col(i, lane)];
     }
   }
   den = (den == 0.f) ? 1.f : den;
-  store2(orow + 2 * lane, num0 / den, num1 / den);
+#pragma unroll
+  for (int p = 0; p < C::kPairs; ++p)
+    store2(orow + C::col(2 * p, lane), num[2 * p] / den, num[2 * p + 1] / den);
+#pragma unroll
+  for (int i = 2 * C::kPairs; i < C::kN; ++i)
+    orow[C::col(i, lane)] = from_f32<T>(num[i] / den);
 }
 
-// one warp per query head: up to 1024 threads (G = 32)
+// Threads a block may have, one warp per query head: G <= 32, except fp32
+// at d 96 and 128, G <= 20 (which its merge buffer needs at d 128 anyway).
+// Under a 1,024-thread bound ptxas kept those two instances to 32
+// registers and spilled; under 640 they take 47-48 with no spill.
 template <typename T, int D>
-__global__ void __launch_bounds__(1024)
+constexpr int max_threads() { return sizeof(T) == 4 && D > 64 ? 640 : 1024; }
+
+template <typename T, int D>
+__global__ void __launch_bounds__(max_threads<T, D>())
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ pos,
               T* __restrict__ out, int Hkv, int C, int G, int per,
               int64_t qb, int64_t qh, int64_t kb, int64_t kh, int64_t kc,
               int64_t vb, int64_t vh, int64_t vc, int window, int chunk,
               float scale) {
-  static_assert(D == 64, "one lane owns two of the 64 output columns");
+  using Cl = Cols<D>;                       // the lane's output columns
   constexpr int kVec = 16 / sizeof(T);      // elements per 16-byte copy
   constexpr int kRow = D + kVec;            // padded shared-memory row
   constexpr int kChunks = D / kVec;         // 16-byte copies per row
@@ -201,7 +242,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
 
-  float m = REPRO_NEG_INF, l = 0.f, acc0 = 0.f, acc1 = 0.f;
+  float m = REPRO_NEG_INF, l = 0.f, acc[Cl::kN];
+#pragma unroll
+  for (int i = 0; i < Cl::kN; ++i) acc[i] = 0.f;
   int t = next_tile(0);
   if (t < n_tiles) {   // q of the group travels with the first tile
     issue(t, 0);
@@ -259,17 +302,24 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float alpha = expf(m - m_new);
     l = l * alpha + warp_sum(psum);
     m = m_new;
-    acc0 *= alpha;
-    acc1 *= alpha;
+#pragma unroll
+    for (int c = 0; c < Cl::kN; ++c) acc[c] *= alpha;
 #pragma unroll
     for (int i = 0; i < kSL; ++i) {
       const int n_i = min(32, n_mine - 32 * i);   // warp-uniform
 #pragma unroll 8
       for (int jj = 0; jj < n_i; ++jj) {
         const float p = __shfl_sync(0xffffffffu, s[i], jj);
-        const float2 vv = load2(vs + (32 * i + jj) * kRow + 2 * lane);
-        acc0 += p * vv.x;
-        acc1 += p * vv.y;
+        const T* vr = vs + (32 * i + jj) * kRow;
+#pragma unroll
+        for (int c = 0; c < Cl::kPairs; ++c) {
+          const float2 vv = load2(vr + Cl::col(2 * c, lane));
+          acc[2 * c] += p * vv.x;
+          acc[2 * c + 1] += p * vv.y;
+        }
+#pragma unroll
+        for (int c = 2 * Cl::kPairs; c < Cl::kN; ++c)
+          acc[c] += p * to_f32(vr[Cl::col(c, lane)]);
       }
     }
     __syncthreads();   // the stage is consumed before it is refilled
@@ -277,7 +327,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     stage ^= 1;
   }
 
-  merge_partials<T, D>(part, split, G, g, lane, m, l, acc0, acc1,
+  merge_partials<T, D>(part, split, G, g, lane, m, l, acc,
                        out + ((int64_t)b * Hkv * G + (int64_t)h * G + g) * D);
 }
 
@@ -305,7 +355,7 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                    int64_t vb, int64_t vh, int64_t vc, int64_t ksb, int64_t ksh,
                    int64_t ksc, int64_t vsb, int64_t vsh, int64_t vsc,
                    int window, int chunk, float scale) {
-  static_assert(D == 64, "one lane owns two of the 64 output columns");
+  using Cl = Cols<D>;                       // the lane's output columns
   constexpr int kVec = 16 / sizeof(T);      // q elements per 16-byte copy
   constexpr int kRow = D + 16;              // padded shared-memory row, bytes
   constexpr int kChunks = D / 16;           // 16-byte copies (16 codes) per row
@@ -373,7 +423,9 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
     }
   };
 
-  float m = REPRO_NEG_INF, l = 0.f, acc0 = 0.f, acc1 = 0.f;
+  float m = REPRO_NEG_INF, l = 0.f, acc[Cl::kN];
+#pragma unroll
+  for (int i = 0; i < Cl::kN; ++i) acc[i] = 0.f;
   int t = next_tile(0);
   if (t < n_tiles) {   // q of the group travels with the first tile
     issue(t, 0);
@@ -447,8 +499,8 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
     const float alpha = expf(m - m_new);
     l = l * alpha + warp_sum(psum);
     m = m_new;
-    acc0 *= alpha;
-    acc1 *= alpha;
+#pragma unroll
+    for (int c = 0; c < Cl::kN; ++c) acc[c] *= alpha;
 #pragma unroll
     for (int i = 0; i < kSL; ++i) {
       const int n_i = min(32, n_mine - 32 * i);   // warp-uniform
@@ -457,10 +509,17 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
         const int slot = 32 * i + jj;
         const float p = __shfl_sync(0xffffffffu, s[i], jj);
         const float sv = vss[slot];
-        const uint32_t two =
-            *reinterpret_cast<const uint16_t*>(vst + slot * kRow + 2 * lane);
-        acc0 += p * dequant<T>(code_at(two, 0), sv);
-        acc1 += p * dequant<T>(code_at(two, 1), sv);
+        const int8_t* vr = vst + slot * kRow;
+#pragma unroll
+        for (int c = 0; c < Cl::kPairs; ++c) {
+          const uint32_t two =
+              *reinterpret_cast<const uint16_t*>(vr + Cl::col(2 * c, lane));
+          acc[2 * c] += p * dequant<T>(code_at(two, 0), sv);
+          acc[2 * c + 1] += p * dequant<T>(code_at(two, 1), sv);
+        }
+#pragma unroll
+        for (int c = 2 * Cl::kPairs; c < Cl::kN; ++c)
+          acc[c] += p * dequant<T>(vr[Cl::col(c, lane)], sv);
       }
     }
     if (nt < n_tiles) store_scales(stage ^ 1);   // its readers passed the
@@ -468,7 +527,7 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
     t = nt;
     stage ^= 1;
   }
-  merge_partials<T, D>(part, split, G, g, lane, m, l, acc0, acc1,
+  merge_partials<T, D>(part, split, G, g, lane, m, l, acc,
                        out + ((int64_t)b * Hkv * G + (int64_t)h * G + g) * D);
 }
 
@@ -486,6 +545,9 @@ void split_geometry(int C, int* n_split, int* per) {
 template <typename Go>
 int launch_clusters(const void* kern, size_t smem, int B, int Hkv, int C, int G,
                     cudaStream_t s, Go&& go) {
+  // the merge buffer grows with G * D: fp32 at d 128 fits G <= 20, bf16
+  // and int8 every G <= 32; a larger one is refused here
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -512,6 +574,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* pos, void* out,
            int B, int Hkv, int C, int G, const int64_t* st, int window,
            int chunk, float scale, cudaStream_t s) {
+  if (32 * G > max_threads<T, D>()) return (int)cudaErrorInvalidValue;
   constexpr int kRow = D + 16 / sizeof(T);
   const size_t smem =
       sizeof(T) * (4 * kTile * kRow + G * D) + sizeof(float) * kMaxSplit * G * (D + 2);
@@ -547,15 +610,6 @@ int launch_int8(const void* q, const void* k, const void* v, const void* ks,
       });
 }
 
-template <typename T>
-int dispatch_d(int d, const void* q, const void* k, const void* v, const int* pos,
-               void* out, int B, int Hkv, int C, int G, const int64_t* st,
-               int window, int chunk, float scale, cudaStream_t s) {
-  // head dim 64 only: the registry's configs use no other
-  if (d != 64) return (int)cudaErrorInvalidValue;
-  return launch<T, 64>(q, k, v, pos, out, B, Hkv, C, G, st, window, chunk, scale, s);
-}
-
 }  // namespace
 
 // strides (in elements): q_b, q_h, k_b, k_h, k_c, v_b, v_h, v_c; the last
@@ -574,11 +628,14 @@ extern "C" int repro_decode_attention(const void* q, const void* k, const void* 
   if (G < 1 || G > 32 || C < 1) return (int)cudaErrorInvalidValue;
   const int64_t st[8] = {q_b, q_h, k_b, k_h, k_c, v_b, v_h, v_c};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kF32)
-    return dispatch_d<float>(d, q, k, v, (const int*)pos, out, B, Hkv, C, G, st,
-                             window, chunk, scale, s);
-  return dispatch_d<__nv_bfloat16>(d, q, k, v, (const int*)pos, out, B, Hkv, C, G,
-                                   st, window, chunk, scale, s);
+  return with_head_dim(d, [&](auto D) {
+    constexpr int kD = decltype(D)::value;
+    if (dtype == kF32)
+      return launch<float, kD>(q, k, v, (const int*)pos, out, B, Hkv, C, G, st,
+                               window, chunk, scale, s);
+    return launch<__nv_bfloat16, kD>(q, k, v, (const int*)pos, out, B, Hkv, C,
+                                     G, st, window, chunk, scale, s);
+  });
 }
 
 // The int8 variant. k/v: int8 codes with the strides of repro_decode_attention
@@ -593,14 +650,18 @@ extern "C" int repro_decode_attention_int8(
     int64_t ks_h, int64_t ks_c, int64_t vs_b, int64_t vs_h, int64_t vs_c,
     int window, int chunk, float scale, int dtype, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (G < 1 || G > 32 || C < 1 || d != 64) return (int)cudaErrorInvalidValue;
+  if (G < 1 || G > 32 || C < 1) return (int)cudaErrorInvalidValue;
   const int64_t st[14] = {q_b, q_h, k_b, k_h, k_c, v_b, v_h, v_c,
                           ks_b, ks_h, ks_c, vs_b, vs_h, vs_c};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kF32)
-    return launch_int8<float, 64>(q, k, v, k_scale, v_scale, (const int*)pos,
-                                  out, B, Hkv, C, G, st, window, chunk, scale, s);
-  return launch_int8<__nv_bfloat16, 64>(q, k, v, k_scale, v_scale,
-                                        (const int*)pos, out, B, Hkv, C, G, st,
-                                        window, chunk, scale, s);
+  return with_head_dim(d, [&](auto D) {
+    constexpr int kD = decltype(D)::value;
+    if (dtype == kF32)
+      return launch_int8<float, kD>(q, k, v, k_scale, v_scale, (const int*)pos,
+                                    out, B, Hkv, C, G, st, window, chunk, scale,
+                                    s);
+    return launch_int8<__nv_bfloat16, kD>(q, k, v, k_scale, v_scale,
+                                          (const int*)pos, out, B, Hkv, C, G, st,
+                                          window, chunk, scale, s);
+  });
 }

@@ -1,10 +1,15 @@
 // Forward prefill attention for Hopper. Replaces the TPU kernel
 // src/repro/kernels/flash_attention.py: flash_attention / _flash_kernel.
 //
+// Head dims 64, 96 and 128 are built (one template instance each; the
+// registry's dense configs use no other).
+//
 // Bound on the H100: at the serving shapes (B=1, Hq=12, Hkv=4, d=64,
-// S = 8..512) the call moves at most 2.1 MB and does at most 0.4 GFLOP, so
-// neither the 3.35 TB/s nor the tensor cores' 989 TFLOP/s is near (both
-// under a microsecond): the latency of each block's tile loop bounds it.
+// S = 8..512; qwen3-4b Hq=32, Hkv=8, d=128; phi3 Hq=Hkv=32, d=96) the
+// call moves at most 12.6 MB (3.8 us at 3.35 TB/s; at S = 64 under a
+// microsecond) and does at most 2.2 GFLOP (2.2 us at 989 TFLOP/s), so the
+// bounds are a few microseconds at most: the latency of each block's tile
+// loop is what sets the time.
 // The first version did fp32 FMA from shared memory with element-wise
 // loads, and loaded each K/V tile once for every query head of a group.
 //
@@ -35,7 +40,10 @@
 //
 // fp32 inputs keep a full-fp32 path with no TF32: flash_kernel_fma, the
 // first version's kernel (one block of 128 threads per (b, q head, 64-row
-// q tile), two threads per query row, fp32 FMA from shared memory).
+// q tile), two threads per query row owning D / 2 output columns each,
+// fp32 FMA from shared memory: 115 KB of it at D = 128, under the 227 KB
+// opt-in). The bf16 kernel takes (64 + 4 * 64) padded rows of D + 8, 87 KB
+// at D = 128.
 #include "common.cuh"
 
 namespace {
@@ -79,7 +87,15 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ out, int S, int G, Strides st,
                  int causal, int window, int chunk, float scale) {
-  static_assert(D == 64, "the fragment loops are written for d = 64");
+  // D / 16 k-steps of Q.K^T taken two at a time, D / 8 n8-tiles of P.V
+  // taken two at a time: 4 and 8 at d 64, 6 and 12 at d 96, 8 and 16 at
+  // d 128. Q's fragments (D / 4 registers, loaded once a tile) and the O
+  // accumulators (D / 2 fp32 a lane) stay in registers: 136, 164 and 194
+  // registers with 0 spills at d 64, 96 and 128 (ptxas, chip_smoke.py
+  // phase 1). Re-reading Q's fragments per k-step pair instead (8 of them
+  // live) cut d 128 to 187 registers but made d 64 at S 512 7-10% slower
+  // (kernel_ab.py against the held fragments; PERF.md, section 6).
+  static_assert(D % 32 == 0, "k-steps and n8-tiles are taken in pairs");
   using bf16 = __nv_bfloat16;
   constexpr int kRow = D + kPad;
   constexpr int kChunks = D / 8;          // 16-byte copies per row
@@ -392,6 +408,17 @@ int launch_fma(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch(int dtype, const void* q, const void* k, const void* v, void* out,
+           int B, int Hq, int Hkv, int S, int G, const Strides& st, int causal,
+           int window, int chunk, float scale, cudaStream_t s) {
+  if (dtype == kF32)
+    return launch_fma<D>(q, k, v, out, B, Hq, S, G, st, causal, window, chunk,
+                         scale, s);
+  return launch_mma<D>(q, k, v, out, B, Hkv, S, G, st, causal, window, chunk,
+                       scale, s);
+}
+
 }  // namespace
 
 // q: (B, Hq, S, d), k/v: (B, Hkv, S, d), out: (B, Hq, S, d), each given by
@@ -408,14 +435,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                                      int dtype, void* stream) {
   if (B <= 0 || S <= 0) return (int)cudaSuccess;
   if (Hkv < 1 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
-  // head dim 64 only: the registry's configs use no other
-  if (d != 64) return (int)cudaErrorInvalidValue;
   const Strides st{q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s};
   const int G = Hq / Hkv;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kF32)
-    return launch_fma<64>(q, k, v, out, B, Hq, S, G, st, causal, window, chunk,
-                          scale, s);
-  return launch_mma<64>(q, k, v, out, B, Hkv, S, G, st, causal, window, chunk,
-                        scale, s);
+  return with_head_dim(d, [&](auto D) {
+    return launch<decltype(D)::value>(dtype, q, k, v, out, B, Hq, Hkv, S, G, st,
+                                      causal, window, chunk, scale, s);
+  });
 }

@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64,)  # the registry's head dims; each one is built and checked
+HEAD_DIMS = _build.ATTENTION_HEAD_DIMS
 MAX_GROUP = 32
 MAX_SPLIT = 8      # the kernel's cluster size: the largest portable one
 
@@ -97,7 +97,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous last dimension, base pointers and strides in multiples of 16
     bytes; pos: (B,) int32. Token t lives in slot
     t % C and the current token's K/V must already be at slot pos % C.
-    CPU tensors take the plain version, CUDA tensors the kernel."""
+    CPU tensors take the plain version, CUDA tensors the kernel; on the card
+    a head dim outside ``HEAD_DIMS`` raises, and so does fp32 at d 96 or 128
+    with G > 20 (the kernel's thread bound there; at d 128 its merge buffer
+    could not be larger either)."""
     if _build.use_plain("decode_attention", q, k, v, pos):
         return decode_attention_plain(q, k, v, pos, window=window, chunk=chunk)
     code = _build.dtype_code("decode_attention", q, k, v)

@@ -22,7 +22,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64,)  # the registry's head dims; each one is built and checked
+HEAD_DIMS = _build.ATTENTION_HEAD_DIMS
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

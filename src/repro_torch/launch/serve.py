@@ -4,11 +4,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-32b
 
-Serves ``--arch`` (``dcache-agent-150m`` by default, or ``rwkv6-7b``: 7.6 B
-parameters, about 15 GB in bf16) with random weights from a
-``torch.Generator`` seeded with 0. ``--smoke`` selects the reduced config
-(vocab 512).
+Serves ``--arch`` (``dcache-agent-150m`` by default; ``rwkv6-7b``: 7.6 B
+parameters, about 15 GB in bf16; the dense ``granite-3-2b``, ``qwen3-4b``,
+``phi3-mini-3.8b`` and ``qwen1.5-32b``: 35.2 B parameters, 70.4 GB, one
+H100 at full depth) with random weights from a ``torch.Generator`` seeded
+with 0. ``--smoke`` selects the reduced config (vocab 512); its head dim 16
+has no kernel instance, so it serves on the CPU only.
 """
 from __future__ import annotations
 

@@ -30,16 +30,16 @@ NEG_INF = -1e30
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv_bias attention is not ported yet")
     if cfg.is_encdec:
         raise NotImplementedError("cross-attention is not ported yet")
 
 
 def init_attention(cfg: ModelConfig, generator: torch.Generator,
                    device: torch.device) -> Dict[str, torch.Tensor]:
-    """One layer's projections, in the JAX (d_in, d_out) orientation, and
-    with ``cfg.qk_norm`` the per-head gains ``q_norm`` and ``k_norm``."""
+    """One layer's projections, in the JAX (d_in, d_out) orientation; with
+    ``cfg.qkv_bias`` the biases ``bq``, ``bk``, ``bv`` (zeros, as JAX
+    initialises them), and with ``cfg.qk_norm`` the per-head gains
+    ``q_norm`` and ``k_norm``."""
     _check_supported(cfg)
     hq, d, hd, kv = cfg.n_attn_heads, cfg.d_model, cfg.head_dim_, cfg.n_kv_heads
     dt = cfg.torch_dtype
@@ -50,6 +50,10 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator,
         "wo": init_param((hq * hd, d), generator, dt, device,
                          scale=1.0 / max(cfg.n_layers, 1) ** 0.5),
     }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((hq * hd,), dtype=dt, device=device)
+        p["bk"] = torch.zeros((kv * hd,), dtype=dt, device=device)
+        p["bv"] = torch.zeros((kv * hd,), dtype=dt, device=device)
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((hd,), dtype=dt, device=device)
         p["k_norm"] = torch.ones((hd,), dtype=dt, device=device)
@@ -59,13 +63,16 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator,
 def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                  is_train: bool = False):
     """Returns q (B,S,KV,G,hd), k,v (B,S,KV,hd); head h = kv*G + g. With
-    ``q_norm`` in p, q and k are RMS-normalised over the head dim (the
+    ``bq`` in p the biases are added to the three projections; with
+    ``q_norm`` in p, q and k are then RMS-normalised over the head dim (the
     rmsnorm kernel when serving on the card)."""
     _check_supported(cfg)
     hd, kvh = cfg.head_dim_, cfg.n_kv_heads
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     B, S = x.shape[:2]
     g = q.shape[-1] // hd // kvh
     q, k = q.view(B, S, kvh, g, hd), k.view(B, S, kvh, hd)

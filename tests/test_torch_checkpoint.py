@@ -210,13 +210,13 @@ def test_msgpack_unpack_raises_on_truncated_and_trailing_data():
 # records and files against JAX's
 # ---------------------------------------------------------------------------
 
-ARCHS = ["dcache-agent-150m", "rwkv6-7b"]
+ARCHS = ["dcache-agent-150m", "rwkv6-7b", "qwen1.5-32b"]
 
 
 def loop_state(arch, seed=0):
     """A TrainLoop checkpoint's contents for the reduced ``arch`` in bf16,
-    as JAX trees and as the port's: params (rwkv6 with noise on its zero
-    leaves), random fp32 moments, and step 5."""
+    as JAX trees and as the port's: params (rwkv6 and qwen1.5's QKV biases
+    with noise on their zero leaves), random fp32 moments, and step 5."""
     jcfg = jax_get_config(arch).reduced()
     tcfg = get_config(arch).reduced()
     if arch == "rwkv6-7b":
@@ -225,6 +225,11 @@ def loop_state(arch, seed=0):
         jp, _ = unbox(jax_init_model(Init(jax.random.PRNGKey(seed),
                                           dtype=jcfg.jnp_dtype), jcfg))
         tree = jax.tree.map(np.asarray, jp)
+        attn, rng = tree["dec"]["attn"], np.random.default_rng(seed + 20)
+        for name in ("bq", "bk", "bv"):
+            if name in attn:
+                attn[name] = rng.normal(0, 0.5, attn[name].shape).astype(
+                    attn[name].dtype)
     rng = np.random.default_rng(seed + 10)
     mu, nu = (jax.tree.map(lambda a: rng.normal(0, s, a.shape).astype(np.float32),
                            tree) for s in (1e-2, 1e-4))

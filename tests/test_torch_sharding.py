@@ -136,7 +136,8 @@ def test_sharding_context_one_device_and_refuses_more():
 # parameter axes and shapes, and every leaf's spec at full width
 # ---------------------------------------------------------------------------
 
-ARCHS = ["dcache-agent-150m", "rwkv6-7b", "qwen3-4b"]
+ARCHS = ["dcache-agent-150m", "rwkv6-7b", "qwen3-4b", "granite-3-2b",
+         "phi3-mini-3.8b", "qwen1.5-32b"]
 
 
 def jax_abstract(cfg):
