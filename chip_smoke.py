@@ -9,8 +9,9 @@ Phases (any failure exits non-zero; nothing is caught):
      (any spill fails the run);
   2. hold each kernel against its plain PyTorch version on the card, in bf16
      (atol = rtol = 2e-2) and fp32 (1e-4, sums in another order), at the main
-     paths' shapes and ragged ones, at every built head dim (64 at G = 3;
-     96 and 128 at G = 4 and G = 1): decode rings whose length is not a
+     paths' shapes and ragged ones: flash and decode at every served
+     path's (head dim, query heads, KV heads) of SERVED_PATHS and at d 96,
+     G = 4; decode rings whose length is not a
      multiple of the split (C = 100) and whose splits are wholly masked or
      empty, windows that end inside a split, prompts whose packed rows cross
      the S*G edge, S = 512 (the engine's max_len); G = 16 at d 64; the int8
@@ -19,7 +20,8 @@ Phases (any failure exits non-zero; nothing is caught):
      holding empty (scale 0) and prefill-pad (scale 1.0) slots; a head dim
      that is not built (80), and an fp32 decode at d 128 with G = 32 (over
      the kernel's G <= 20 there), must raise and launch nothing; rmsnorm at
-     d 100, on views off 16 bytes (its scalar path) and at qwen3-4b's
+     every served path's d_model at 1, 4, 48, 64 and 257 rows, at d 100,
+     on views off 16 bytes (its scalar path) and at qwen3-4b's
      qk_norm shapes (q (2,37,8,4,128), k (2,37,8,128)), its C++ launch
      geometry equal to kernels/rmsnorm.py's; WKV around its
      staged chunk of T steps (T - 1, T, T + 1), at S = 512, from a random
@@ -27,9 +29,10 @@ Phases (any failure exits non-zero; nothing is caught):
      misaligned view of an attention (bf16 or int8) or WKV input must raise
      and launch nothing. Time kernel, plain version and the library call
      (CUDA events, median of 50) at each served path's shapes (dcache,
-     qwen3-4b, phi3-mini-3.8b, qwen1.5-32b's decode), prefill also at
-     S = 512, and an empty kernel (the launch floor);
-  3. serve seven paths at full width in bf16, each with random weights from
+     qwen3-4b, phi3-mini-3.8b, qwen1.5-32b's decode, mixtral's G 6 and
+     llama4's G 5 at d 128), prefill also at S = 512, and an empty kernel
+     (the launch floor);
+  3. serve ten paths at full width in bf16, each with random weights from
      a seeded torch.Generator, through ServingEngine(max_batch=4,
      max_len=512) (8 prompts x 32 new tokens) and then one
      TorchLLM.complete: dcache-agent-150m (dense: rmsnorm, prefill and
@@ -37,10 +40,17 @@ Phases (any failure exits non-zero; nothing is caught):
      every decode attention launch is the int8 kernel's), rwkv6-7b (ssm:
      rmsnorm and the WKV kernel), qwen3-4b (d 128, G 4, qk_norm on the
      rmsnorm kernel), granite-3-2b (d 64, G 4, tied), phi3-mini-3.8b (d 96,
-     MHA) and qwen1.5-32b (d 128, MHA, QKV bias; 70.4 GB of weights, its
-     depth cut only if the card's free memory cannot hold them). The launch
-     counters are reset before each path and must then equal the exact
-     numbers the path implies. Profile a
+     MHA), qwen1.5-32b (d 128, MHA, QKV bias; 70.4 GB of weights), then
+     the MoE and hybrid families: mixtral-8x22b (d 128, G 6; 12 of its 56
+     layers, width unchanged: 30.45 B parameters, 60.9 GB),
+     llama4-maverick-400b-a17b (d 128, G 5; 4 of 48 layers, two dense/MoE
+     super-layers, 128 experts and the shared one: 35.04 B parameters,
+     70.1 GB) and hymba-1.5b (d 64, G 3, Mamba heads beside attention, full
+     depth); each depth is fixed and asserted to fit the card's free memory
+     before anything is drawn. MoE and hybrid launch only the dense rule's
+     kernels (the expert products and the SSM scan are torch ops, as they
+     are XLA ops in JAX). The launch counters are reset before each path
+     and must then equal the exact numbers the path implies. Profile a
      decode step, a prefill (each kernel's device time per launch in them,
      the launch API calls per call) and the unembed (held against an fp32
      product within 1e-3); record the KV cache's bytes on the card;
@@ -50,15 +60,20 @@ Phases (any failure exits non-zero; nothing is caught):
      pages and copy the tail, and paged_decode_attention (the decode kernel
      on the gathered view) must equal its plain version, with exact launch
      counts;
-  4. for the first three paths, qwen3-4b and phi3-mini-3.8b (every head dim
-     and group of phase 3), the full-width weights cut to 2 layers, in fp32,
+  4. for the first three paths, qwen3-4b, phi3-mini-3.8b, qwen1.5-32b,
+     mixtral-8x22b (MoE, G 6) and hymba-1.5b (attention and Mamba heads):
+     every head dim and group of phase 3 but llama4's G 5, the full-width
+     weights cut to 2 layers, in fp32,
      on the CPU (plain versions) and on the card (kernels): prefill + 8
      greedy decode steps on 3 prompts; logits within 1e-3 and the same greedy
      tokens (or a top-2 gap within the tolerance where a token differs); the
      int8 codes may differ by one where a value lies on a rounding edge.
-     Dense prompts are right-padded with true_lens; rwkv prompts are
-     prefilled one by one at their own length, since padding would enter
-     the recurrent state;
+     Attention prompts are right-padded with true_lens; rwkv and hymba
+     prompts are prefilled one by one at their own length, since padding
+     would enter the recurrent state. llama4-maverick is left out: one
+     super-layer at full width is 74 GB of fp32 weights on the host; its
+     heads are held in phase 2 and its numerics against JAX on the CPU
+     (tests/test_torch_moe.py);
   5. training (freeing the card before and after): full-width
      dcache-agent-150m in bf16 through the twin's own train() of
      repro_torch.launch.serve_llm, 30 AdamW steps at 8 x 512 tokens; every
@@ -114,6 +129,7 @@ import torch  # noqa: E402
 
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.launch.serve import PROMPTS  # noqa: E402
+from repro_torch.training.optimizer import tree_leaves  # noqa: E402
 
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
@@ -222,16 +238,39 @@ def randn(gen, *shape, dtype):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# phase 3's paths (arch, kv_quant, layers): the MoE configs' depth is cut to
+# fit one card
+SERVED_PATHS = (("dcache-agent-150m", False, None), ("dcache-agent-150m", True, None),
+                ("rwkv6-7b", False, None), ("qwen3-4b", False, None),
+                ("granite-3-2b", False, None), ("phi3-mini-3.8b", False, None),
+                ("qwen1.5-32b", False, None), ("mixtral-8x22b", False, 12),
+                ("llama4-maverick-400b-a17b", False, 4), ("hymba-1.5b", False, None))
+
+
+def served_shapes():
+    """The served paths' rmsnorm row widths (d_model) and attention heads
+    (head dim, query heads, KV heads), sorted."""
+    from repro_torch.configs import get_config
+
+    cfgs = [get_config(arch) for arch, _, _ in SERVED_PATHS]
+    heads = {(c.head_dim_, c.n_attn_heads, c.n_kv_heads)
+             for c in cfgs if not c.attn_free}
+    return sorted({c.d_model for c in cfgs}), sorted(heads)
+
+
 def check_kernels(errs):
     from repro_torch.kernels import ops
     from repro_torch.kernels.rmsnorm import rmsnorm_plain
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_rmsnorm_geometry()
+    widths, heads = served_shapes()
     for dtype in (torch.bfloat16, torch.float32):
-        # d 100 in bf16 is not a multiple of 8: the scalar path
-        for rows in (1, 4, 257):
-            for dm in (64, 100, 768, 4096):
+        # every served path's d_model, at a decode step's 4 rows and a
+        # prefill's 48 (exact length) and 64 (bucket); d 100 in bf16 is not a
+        # multiple of 8: the scalar path
+        for rows in (1, 4, 48, 64, 257):
+            for dm in sorted({64, 100} | set(widths)):
                 x = randn(gen, rows, dm, dtype=dtype)
                 g = randn(gen, dm, dtype=dtype)
                 compare("rmsnorm", f"rows={rows} d={dm}", ops.rmsnorm(x, g),
@@ -247,12 +286,10 @@ def check_kernels(errs):
             x, g = randn(gen, *shape, dtype=dtype), randn(gen, 128, dtype=dtype)
             compare("rmsnorm", f"qk_norm x={shape}", ops.rmsnorm(x, g),
                     rmsnorm_plain(x, g), dtype, errs)
-        # each served path's head dim and heads: dcache-agent-150m (d 64, 12
-        # over 4), granite-3-2b (d 64, 32 over 8), qwen3-4b (d 128, 32 over
-        # 8), phi3-mini-3.8b (d 96, 32 MHA), qwen1.5-32b (d 128, 40 MHA);
-        # and d 96 at G = 4, which no path serves
-        for d, Hq, Hkv in ((64, 12, 4), (64, 32, 8), (128, 32, 8), (96, 32, 32),
-                           (128, 40, 40), (96, 16, 4)):
+        # each served path's head dim and heads (the grid follows Hkv, so
+        # every (d, Hq, Hkv) is its own case), and d 96 at G = 4, which no
+        # path serves
+        for d, Hq, Hkv in heads + [(96, 16, 4)]:
             check_attention(gen, dtype, d, Hq, Hkv, errs)
         check_group16(gen, dtype, errs)
         for d in HEAD_DIMS:
@@ -651,7 +688,9 @@ def time_kernels():
     for key, Hq, Hkv, d in (("decode_attention", 12, 4, 64),
                             ("decode_attention_qwen3", 32, 8, 128),
                             ("decode_attention_phi3", 32, 32, 96),
-                            ("decode_attention_qwen1.5", 40, 40, 128)):
+                            ("decode_attention_qwen1.5", 40, 40, 128),
+                            ("decode_attention_mixtral", 48, 8, 128),
+                            ("decode_attention_llama4", 40, 8, 128)):
         rows[key] = time_decode(gen, 4, Hq, Hkv, 512, d)
     for key, Hq, Hkv, d in (("decode_attention_int8", 12, 4, 64),
                             ("decode_attention_int8_qwen3", 32, 8, 128)):
@@ -661,7 +700,9 @@ def time_kernels():
     # and at the engine's max_len (S=512), at each served config's heads
     for key, Hq, Hkv, d in (("flash_attention", 12, 4, 64),
                             ("flash_attention_qwen3", 32, 8, 128),
-                            ("flash_attention_phi3", 32, 32, 96)):
+                            ("flash_attention_phi3", 32, 32, 96),
+                            ("flash_attention_mixtral", 48, 8, 128),
+                            ("flash_attention_llama4", 40, 8, 128)):
         for S in (64, 512):
             rows[key + ("_s512" if S == 512 else "")] = time_flash(
                 gen, Hq, Hkv, S, d)
@@ -732,18 +773,6 @@ def time_kernels():
 # ---------------------------------------------------------------------------
 
 
-def leaves(p):
-    """Every tensor of a parameter tree (dicts and lists)."""
-    if isinstance(p, dict):
-        for v in p.values():
-            yield from leaves(v)
-    elif isinstance(p, list):
-        for v in p:
-            yield from leaves(v)
-    else:
-        yield p
-
-
 def expected_launches(cfg, prefills, steps):
     """Kernel launches the serving path implies: the dense decoder runs
     rmsnorm twice a layer (four times with qk_norm: q and k too) and once
@@ -768,18 +797,33 @@ def cache_bytes(cache):
     return sum(t.numel() * t.element_size() for k, t in cache.items() if k != "pos")
 
 
+def key_of(what):
+    return "decode" if what.startswith("decode") else "prefill"
+
+
 def serve_bytes(cfg, max_batch=4, max_len=512):
-    """The bytes of ``cfg``'s weights and serving ring on the card, in its
-    dtype (the int8 ring of kv_quant is smaller)."""
-    from repro_torch.bridge import param_shapes
+    """The bytes of ``cfg``'s weights and serving cache on the card (the
+    engine's own cache leaves, allocated on the meta device)."""
+    from repro_torch.configs import alloc_cache
+    from repro_torch.launch.serve import weight_bytes
 
-    es = torch.empty((), dtype=cfg.torch_dtype).element_size()
-    weights = sum(math.prod(s) for s in leaves(param_shapes(cfg)))
-    ring = 2 * cfg.n_layers * max_batch * max_len * cfg.n_kv_heads * cfg.head_dim_
-    return es * (weights + ring)
+    return weight_bytes(cfg) + cache_bytes(
+        alloc_cache(cfg, max_batch, max_len, torch.device("meta")))
 
 
-def serve_full_width(arch, kv_quant=False):
+def decode_read_bytes(cfg, rows=4):
+    """The weight bytes a decode step of ``rows`` tokens must read: every
+    leaf, but of an untied input embedding only the rows it gathers."""
+    from repro_torch.launch.serve import weight_bytes
+
+    nbytes = weight_bytes(cfg)
+    if not cfg.tie_embeddings:
+        es = torch.empty((), dtype=cfg.torch_dtype).element_size()
+        nbytes -= (cfg.padded_vocab - rows) * cfg.d_model * es
+    return nbytes
+
+
+def serve_full_width(arch, kv_quant=False, n_layers=None):
     from repro_torch.agent import TorchLLM
     from repro_torch.configs import alloc_cache, get_config
     from repro_torch.kernels import ops
@@ -787,20 +831,28 @@ def serve_full_width(arch, kv_quant=False):
                                           prefill_step)
     from repro_torch.serving import ServingEngine
 
-    cfg = dataclasses.replace(get_config(arch), kv_quant=kv_quant)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, kv_quant=kv_quant,
+                              n_layers=n_layers or full.n_layers)
     free, need = torch.cuda.mem_get_info()[0], serve_bytes(cfg)
-    assert need < free, (f"{arch}: weights and ring at full depth need "
-                         f"{need / 2**30:.2f} GiB, {free / 2**30:.2f} GiB free")
-    log(f"  {arch}: weights and ring {need / 2**30:.2f} GiB of {free / 2**30:.2f} "
-        f"GiB free on the card at {cfg.n_layers} layers")
+    assert need < free, (f"{arch}: weights and cache at {cfg.n_layers} layers "
+                         f"need {need / 2**30:.2f} GiB, {free / 2**30:.2f} GiB free")
+    cut = ("full depth" if cfg.n_layers == full.n_layers else
+           f"depth cut from {full.n_layers} layers, width unchanged")
+    log(f"  {arch}: weights and cache {need / 2**30:.2f} GiB of "
+        f"{free / 2**30:.2f} GiB free on the card at {cfg.n_layers} layers "
+        f"({cut})")
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = init_model(cfg, gen, "cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # a decode step cannot read its weights faster than the card's memory
+    # rate; the MoE dispatch reads every expert at every step
     m = dict(arch=arch, kv_quant=kv_quant, params=n_params,
              init_s=time.perf_counter() - t0, n_layers=cfg.n_layers,
-             free_bytes=free)
+             full_layers=full.n_layers, free_bytes=free,
+             weights_read_floor_ms=1e3 * decode_read_bytes(cfg) / PEAK_BYTES_S)
     log(f"  {cfg.name}: {n_params / 1e6:.1f} M params summed from the tensors "
         f"({cfg.param_count() / 1e6:.1f} M by ModelConfig.param_count), "
         f"{cfg.dtype}, L={cfg.n_layers} d={cfg.d_model}, family {cfg.family}; "
@@ -812,7 +864,7 @@ def serve_full_width(arch, kv_quant=False):
     torch.cuda.synchronize()
 
     eng = ServingEngine(cfg, params, max_batch=4, max_len=512, device="cuda")
-    if cfg.family == "dense":
+    if cfg.family != "ssm":
         # the KV cache on the card, against the bf16 ring of the same engine
         bf16 = alloc_cache(dataclasses.replace(cfg, kv_quant=False), 4, 512,
                            torch.device("meta"))
@@ -858,10 +910,10 @@ def serve_full_width(arch, kv_quant=False):
         f"{len(decode_only)}) {m['decode_step_ms']:.3f} ms; TorchLLM -> {text!r}")
 
     # where a step's time goes: device time by kernel and the busy share.
-    # Dense prompts are padded to a bucket (64 here); rwkv prompts run at
-    # their exact length (48 here, about the length of PROMPTS).
+    # Attention prompts are padded to a bucket (64 here); rwkv and hymba
+    # prompts run at their exact length (48 here, about that of PROMPTS).
     toks = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         prompt = torch.zeros((1, 48), dtype=torch.int32, device="cuda")
         pre_kw = {}
     else:
@@ -886,13 +938,17 @@ def serve_full_width(arch, kv_quant=False):
         # each kernel's device time per launch inside the step or prefill
         in_step = {n: kernel_device_us(per_call, KERNEL_NEEDLES[n]) / c
                    for n, c in launches.items()}
+        if key_of(what) == "decode" and cfg.family == "moe":
+            log(f"  decode step device {dev_us / 1e3:.3f} ms against the "
+                f"weights-read floor {m['weights_read_floor_ms']:.3f} ms "
+                f"({decode_read_bytes(cfg) / 1e9:.2f} GB at 3.35 TB/s)")
         log(f"  profile {what}: host wall {wall_us / 1e3:.3f} ms/call, device "
             f"{dev_us / 1e3:.3f} ms/call, device busy {100 * busy:.1f}%; "
             f"launch API calls/call {api_launches:.1f}; "
             f"kernel launches/call {launches}; device us per launch "
             + ", ".join(f"{n} {t:.2f}" for n, t in in_step.items()) + "; top: "
             + "; ".join(f"{k[:48]} {t:.1f} us" for k, t in top))
-        key = "decode" if what.startswith("decode") else "prefill"
+        key = key_of(what)
         m[f"{key}_per_launch_us"] = in_step
         m[f"{key}_wall_ms"] = wall_us / 1e3
         m[f"{key}_device_ms"] = dev_us / 1e3
@@ -932,12 +988,13 @@ def tree_to(p, device):
 
 
 def prefill(cfg, params, ids, device):
-    """Prefill the prompts ``ids`` on ``device``: dense prompts right-padded
-    into one batch with true_lens; rwkv prompts one by one at their own
-    length, their caches then joined along the batch dimension."""
+    """Prefill the prompts ``ids`` on ``device``: attention prompts
+    right-padded into one batch with true_lens; rwkv and hymba prompts one
+    by one at their own length, their caches then joined along the batch
+    dimension."""
     from repro_torch.models.model import prefill_step
 
-    if cfg.family != "ssm":
+    if cfg.family not in ("ssm", "hybrid"):
         S = max(len(i) for i in ids)
         toks = torch.tensor([i + [0] * (S - len(i)) for i in ids],
                             dtype=torch.int32, device=device)
@@ -946,7 +1003,7 @@ def prefill(cfg, params, ids, device):
         return prefill_step(cfg, params, {"tokens": toks}, max_len=64,
                             true_lens=lens)
     rows = [prefill_step(cfg, params, {"tokens": torch.tensor(
-        [i], dtype=torch.int32, device=device)}) for i in ids]
+        [i], dtype=torch.int32, device=device)}, max_len=64) for i in ids]
     cache = {k: torch.cat([c[k] for c, _ in rows], dim=0 if k == "pos" else 1)
              for k in rows[0][0]}
     return cache, torch.cat([lg for _, lg in rows])
@@ -962,11 +1019,13 @@ def cpu_vs_card(arch, tol=1e-3, kv_quant=False):
     # drawn on the card (fast) and copied to the CPU
     gen = torch.Generator(device="cuda").manual_seed(1)
     gpu_params = init_model(cfg, gen, "cuda")
-    # QKV biases start at zero, as in JAX, which would hold nothing: noise
+    # QKV biases and the SSM heads' dt bias and decay start at zero, as in
+    # JAX, which would hold nothing: noise
     for lp in gpu_params["layers"]:
-        for b in ("bq", "bk", "bv"):
-            if b in lp.get("attn", {}):
-                lp["attn"][b].normal_(0.0, 0.5, generator=gen)
+        for part, b in (("attn", "bq"), ("attn", "bk"), ("attn", "bv"),
+                        ("ssm", "b_dt"), ("ssm", "a_log")):
+            if b in lp.get(part, {}):
+                lp[part][b].normal_(0.0, 0.5, generator=gen)
     cpu_params = tree_to(gpu_params, "cpu")
     tok = ByteTokenizer()
     ids = [tok.encode(p) for p in PROMPTS[:3]]
@@ -1182,7 +1241,7 @@ def train_full_width():
 
     cfg = get_config("dcache-agent-150m")
     params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    n_params = sum(t.numel() for t in leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = ops.launch_counts()
@@ -1205,7 +1264,7 @@ def train_full_width():
     assert last <= first - 0.5, f"loss fell from {first:.3f} to {last:.3f} only"
     assert ops.launch_counts() == before, "training launched a hand-written kernel"
     assert all(t.dtype == torch.bfloat16 and not t.requires_grad
-               for t in leaves(loop.params)), "trained params are not plain bf16"
+               for t in tree_leaves(loop.params)), "trained params are not plain bf16"
     step_ms = 1e3 * statistics.median(mon.step_times)
     tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
     log(f"  trained {TRAIN_STEPS} steps at {TRAIN_B}x{TRAIN_S} in {wall:.2f} s: "
@@ -1267,7 +1326,6 @@ def train_cpu_vs_card(arch, B, S):
     from repro_torch.models.model import init_model
     from repro_torch.training import (AdamWConfig, TokenStream, init_opt_state,
                                       make_train_step)
-    from repro_torch.training.optimizer import tree_leaves
     from repro_torch.training.train_loop import loss_and_grads
 
     cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
@@ -1311,8 +1369,6 @@ TINY_STEPS = 60
 
 def same_loop_state(a, b, where):
     """Two TrainLoops hold equal params, moments and step, bit for bit."""
-    from repro_torch.training.optimizer import tree_leaves
-
     pairs = list(zip(tree_leaves(a.params), tree_leaves(b.params))) + list(
         zip(tree_leaves(a.opt_state), tree_leaves(b.opt_state)))
     assert len(pairs) == len(tree_leaves(a.params)) * 3 + 1
@@ -1473,18 +1529,20 @@ def main() -> int:
     log(f"  {len(spills)} kernel instances built, none spills")
 
     log("phase 2: kernels against their plain versions on the card")
+    t2 = time.perf_counter()
     errs = {}
     check_kernels(errs)
     timing = time_kernels()
+    phase_s = {"2": time.perf_counter() - t2}
 
     counts, serve = {}, {}
-    paths = (("dcache-agent-150m", False), ("dcache-agent-150m", True),
-             ("rwkv6-7b", False), ("qwen3-4b", False), ("granite-3-2b", False),
-             ("phi3-mini-3.8b", False), ("qwen1.5-32b", False))
-    for arch, kvq in paths:
+    for arch, kvq, layers in SERVED_PATHS:
         name = arch + ("+kv_quant" if kvq else "")
         log(f"phase 3: full-width serving, {name}")
-        c, serve[name] = serve_full_width(arch, kv_quant=kvq)
+        t3 = time.perf_counter()
+        c, serve[name] = serve_full_width(arch, kv_quant=kvq, n_layers=layers)
+        serve[name]["phase_s"] = time.perf_counter() - t3
+        log(f"  {name}: phase 3 took {serve[name]['phase_s']:.1f} s")
         for k, v in c.items():
             counts[k] = counts.get(k, 0) + v
         free_card()
@@ -1497,13 +1555,18 @@ def main() -> int:
     free_card()
 
     # phase 4 covers each kernel instance's head dim and group: d 64 (dense,
-    # kv_quant), the WKV path, d 128 at G 4 with qk_norm, d 96 at G 1, and
-    # d 128 at G 1 with non-zero QKV biases
-    for arch, kvq in paths[:3] + (("qwen3-4b", False), ("phi3-mini-3.8b", False),
-                                  ("qwen1.5-32b", False)):
+    # kv_quant), the WKV path, d 128 at G 4 with qk_norm, d 96 at G 1, d 128
+    # at G 1 with non-zero QKV biases, the MoE block at d 128 G 6, and the
+    # Mamba heads beside attention at d 64 G 3
+    for arch, kvq in (("dcache-agent-150m", False), ("dcache-agent-150m", True),
+                      ("rwkv6-7b", False), ("qwen3-4b", False),
+                      ("phi3-mini-3.8b", False), ("qwen1.5-32b", False),
+                      ("mixtral-8x22b", False), ("hymba-1.5b", False)):
         name = arch + ("+kv_quant" if kvq else "")
         log(f"phase 4: CPU vs card, fp32, {name}")
+        t4 = time.perf_counter()
         worst, ties, flips = cpu_vs_card(arch, kv_quant=kvq)
+        phase_s["4 " + name] = time.perf_counter() - t4
         serve[name].update(cpu_vs_card_max_logit_diff=worst,
                            cpu_vs_card_near_ties=ties,
                            cpu_vs_card_int8_code_flips=flips)
@@ -1546,14 +1609,15 @@ def main() -> int:
         f"cpu={rc['mb_s']:.1f} host_read_s cuda={rg['host_read_s']:.2f} "
         f"cpu={rc['host_read_s']:.2f} phase_s={ckpt['phase_s']:.1f}")
     for name, sv in serve.items():
-        log(f"card: {card} | {name} serving L={sv['n_layers']} "
+        log(f"card: {card} | {name} serving L={sv['n_layers']}/{sv['full_layers']} "
             f"tok/s={sv['tok_s']:.1f} mean_ttft_ms={sv['mean_ttft_ms']:.2f} "
             f"decode_step_ms={sv['decode_step_ms']:.3f} "
             f"decode_device_ms={sv['decode_device_ms']:.3f} "
             f"prefill_device_ms={sv['prefill_device_ms']:.3f} "
             f"kv_MiB={sv.get('kv_cache_bytes', 0) / 2**20:.1f} "
             f"decode_launch_api_calls={sv['decode_launch_api_calls']:.1f} "
-            f"decode_busy={100 * sv['decode_busy']:.1f}%")
+            f"decode_busy={100 * sv['decode_busy']:.1f}% "
+            f"weights_read_floor_ms={sv['weights_read_floor_ms']:.3f}")
     src = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                        "src/repro/kernels/rmsnorm.py:27"),
            "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1584,10 +1648,12 @@ def main() -> int:
     result = {"card": card, "serving": serve, "paged": paged,
               "training": training, "checkpoint": ckpt, "timing": timing,
               "max_abs_err": errs, "max_abs_err_by_dim": HELD, "kernels": kernels,
+              "phase_s": phase_s,
               "command_s": time.perf_counter() - t_start}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
-    log(f"total {result['command_s']:.1f} s")
+    log(f"total {result['command_s']:.1f} s; phase 2 {phase_s['2']:.1f} s; phase 4 "
+        + ", ".join(f"{k[2:]} {v:.1f} s" for k, v in phase_s.items() if k != "2"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

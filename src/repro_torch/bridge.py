@@ -4,7 +4,12 @@
 ``unbox(init_model(...))[0]`` gives after ``np.asarray`` on every leaf) and
 returns the port's parameter dict. Layer-stacked leaves such as
 ``dec/attn/wq`` of shape (L, d, hq*hd) become layer ``l``'s ``attn/wq``,
-and likewise ``dec/tm/*`` and ``dec/cm/*`` for the ssm family (rwkv6).
+and likewise ``dec/ssm/*`` (the hybrid family's Mamba heads) and
+``dec/tm/*`` and ``dec/cm/*`` for the ssm family (rwkv6). The MoE family
+stacks its FFNs by kind: with super-layers of k = ``moe.interleave``
+layers, ``dec/moe/*`` has one entry per super-layer s, layer s*k + k-1,
+and ``dec/mlp/*`` one per dense layer, in layer order (JAX regroups it as
+(n_super, k-1)), so dense entry s*(k-1) + j is layer s*k + j.
 bf16 comes across through float32, which is exact in both directions. Any
 tree of the params' structure comes across the same way: a gradient tree,
 or with ``dtype=torch.float32`` the fp32 optimizer moments.
@@ -38,13 +43,13 @@ def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None,
                       dtype: Optional[torch.dtype] = None) -> Dict:
-    """The port's parameters from the JAX dense- or ssm-family tree, in
+    """The port's parameters from the JAX tree of a ported family, in
     ``dtype`` (``cfg``'s model dtype unless given)."""
     _check_family(cfg)
     dev = resolve_device(device)
@@ -54,33 +59,57 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None,
 
 def to_jax_layout(params: Mapping, cfg: ModelConfig) -> Dict:
     """A tree of the port's params structure (params, gradients or a
-    moment) in the JAX layout: ``layers`` stacked into ``dec``."""
+    moment) in the JAX layout: ``layers`` stacked into ``dec``, each kind
+    of leaf over the layers that have it, in layer order."""
     _check_family(cfg)
     layers = params["layers"]
     out = {k: v for k, v in params.items() if k != "layers"}
-    out["dec"] = {
-        k: ({n: torch.stack([lp[k][n] for lp in layers]) for n in v}
-            if isinstance(v, dict) else torch.stack([lp[k] for lp in layers]))
-        for k, v in layers[0].items()}
+    kinds = {k: v for lp in layers for k, v in lp.items()}
+    out["dec"] = {}
+    for k, v in kinds.items():
+        have = [lp[k] for lp in layers if k in lp]
+        out["dec"][k] = ({n: torch.stack([t[n] for t in have]) for n in v}
+                         if isinstance(v, dict) else torch.stack(have))
     return out
 
 
+def _stack_index(cfg: ModelConfig):
+    """For each layer, its index into each kind's stack: the layer itself,
+    or for ``moe`` and ``mlp`` of a MoE config the count of earlier layers
+    of the same kind."""
+    mask = cfg.moe_layer_mask()
+    for l, is_moe in enumerate(mask):
+        if cfg.moe is None:
+            yield {"moe": None, "mlp": l}
+        else:
+            n_moe = sum(mask[:l])
+            yield {"moe": n_moe, "mlp": None} if is_moe else \
+                {"moe": None, "mlp": l - n_moe}
+
+
 def from_jax_layout(tree: Mapping, cfg: ModelConfig) -> Dict:
-    """The inverse of ``to_jax_layout``: ``dec`` split into ``layers``."""
+    """The inverse of ``to_jax_layout``: ``dec`` split into ``layers``,
+    each a view of the stacked tensors."""
     _check_family(cfg)
     dec = tree["dec"]
     out = {k: v for k, v in tree.items() if k != "dec"}
-    out["layers"] = [
-        {k: ({n: t[l] for n, t in v.items()} if isinstance(v, dict) else v[l])
-         for k, v in dec.items()}
-        for l in range(cfg.n_layers)]
+    out["layers"] = []
+    for l, own in enumerate(_stack_index(cfg)):
+        lp = {}
+        for k, v in dec.items():
+            i = own.get(k, l)
+            if i is not None:
+                lp[k] = ({n: t[i] for n, t in v.items()}
+                         if isinstance(v, dict) else v[i])
+        out["layers"].append(lp)
     return out
 
 
 def _param_specs(cfg: ModelConfig) -> Dict:
     """(shape, axes) of every leaf of the JAX layout, as the reference's
-    ``init_model``, ``init_attention``, ``init_mlp``, ``init_time_mix`` and
-    ``init_channel_mix`` declare them."""
+    ``init_model``, ``init_attention``, ``init_mlp``, ``init_moe``,
+    ``init_mamba``, ``init_time_mix`` and ``init_channel_mix`` declare
+    them."""
     _check_family(cfg)
     L, D, V, F = cfg.n_layers, cfg.d_model, cfg.padded_vocab, cfg.d_ff
     LE = ("layers", "embed")
@@ -117,11 +146,38 @@ def _param_specs(cfg: ModelConfig) -> Dict:
             attn["bk"] = attn["bv"] = ((L, kv * hd), ("layers", "kv"))
         if cfg.qk_norm:
             attn["q_norm"] = attn["k_norm"] = ((L, hd), ("layers", ""))
-        mlp = {"w_up": ((L, D, F), LE + ("mlp",)),
-               "w_down": ((L, F, D), ("layers", "mlp", "embed"))}
-        if cfg.act == "swiglu":
-            mlp["w_gate"] = ((L, D, F), LE + ("mlp",))
-        dec["attn"], dec["mlp"] = attn, mlp
+        dec["attn"] = attn
+        if cfg.family == "hybrid":
+            H, shd, N = cfg.n_ssm_heads, cfg.ssm.head_dim, cfg.ssm.state_size
+            cw = max(cfg.ssm.conv_width, 1)
+            dec["ssm"] = {
+                "w_in": ((L, D, H * shd), LE + ("ssm_dim",)),
+                "w_dt": ((L, D, H), LE + ("",)),
+                "b_dt": ((L, H), ("layers", "")),
+                "w_B": ((L, D, H * N), LE + ("",)),
+                "w_C": ((L, D, H * N), LE + ("",)),
+                "a_log": ((L, H), ("layers", "")),
+                "d_skip": ((L, H), ("layers", "")),
+                "conv": ((L, cw, H * shd), ("layers", "conv", "ssm_dim")),
+                "w_out": ((L, H * shd, D), ("layers", "ssm_dim", "embed"))}
+        n_moe = L // cfg.moe.interleave if cfg.moe else 0
+        if L - n_moe:
+            n = L - n_moe
+            dec["mlp"] = {"w_up": ((n, D, F), LE + ("mlp",)),
+                          "w_down": ((n, F, D), ("layers", "mlp", "embed"))}
+            if cfg.act == "swiglu":
+                dec["mlp"]["w_gate"] = ((n, D, F), LE + ("mlp",))
+        if n_moe:
+            E, LX = cfg.moe.n_experts, ("layers", "experts")
+            moe = {"router": ((n_moe, D, E), LE + ("experts",)),
+                   "we_gate": ((n_moe, E, D, F), LX + ("embed", "mlp")),
+                   "we_up": ((n_moe, E, D, F), LX + ("embed", "mlp")),
+                   "we_down": ((n_moe, E, F, D), LX + ("mlp", "embed"))}
+            if cfg.moe.n_shared_experts:
+                sf = cfg.moe.n_shared_experts * F
+                moe["ws_gate"] = moe["ws_up"] = ((n_moe, D, sf), LE + ("mlp",))
+                moe["ws_down"] = ((n_moe, sf, D), ("layers", "mlp", "embed"))
+            dec["moe"] = moe
     p["dec"] = dec
     return p
 

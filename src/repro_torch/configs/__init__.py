@@ -1,7 +1,7 @@
 """Architecture registry: ``get_config("<arch-id>")``.
 
-Only the families ported so far are registered; other configs come with
-their families.
+Only the families ported so far are registered (dense, ssm, moe, hybrid);
+other configs come with their families.
 """
 from __future__ import annotations
 
@@ -14,6 +14,9 @@ from repro_torch.configs.shapes import alloc_cache, effective_cache_len  # noqa:
 _ARCH_MODULES: Dict[str, str] = {
     "dcache-agent-150m": "dcache_agent_150m",
     "granite-3-2b": "granite_3_2b",
+    "hymba-1.5b": "hymba_1_5b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "mixtral-8x22b": "mixtral_8x22b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "qwen1.5-32b": "qwen1_5_32b",
     "qwen3-4b": "qwen3_4b",

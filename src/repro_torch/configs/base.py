@@ -151,6 +151,19 @@ class ModelConfig:
         total += self.padded_vocab * d * (1 if self.tie_embeddings else 2)
         return total
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE top-k active) — for 6·N_active·D."""
+        if self.moe is None:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        n_ff_mats = 3 if self.act == "swiglu" else 2
+        per_expert = n_ff_mats * d * f
+        inactive = 0
+        for m in self.moe_layer_mask():
+            if m:
+                inactive += (self.moe.n_experts - self.moe.top_k) * per_expert
+        return self.param_count() - inactive
+
     def reduced(self) -> "ModelConfig":
         """Tiny same-family config for CPU tests."""
         kw = dict(

@@ -1,4 +1,4 @@
-"""Decode-time cache shapes (the dense and ssm families of
+"""Decode-time cache shapes (the dense, moe, hybrid and ssm families of
 ``repro.configs.shapes``)."""
 from __future__ import annotations
 
@@ -23,16 +23,19 @@ def alloc_cache(cfg: ModelConfig, batch: int, seq_len: int,
                 device: torch.device) -> Dict[str, torch.Tensor]:
     """Zeroed decode cache, laid out as ``cache_specs`` lays it out.
 
-    Every family has ``pos`` (B,) int32. The dense family adds layer-stacked
-    ring buffers ``k``/``v`` (L, B, C, KV*hd) in the model dtype, or, with
-    ``cfg.kv_quant``, in int8 beside per-token-per-head scales
-    ``k_scale``/``v_scale`` (L, B, C, KV) in the model dtype (0 in an empty
-    slot; a prefilled pad slot gets 1.0 from ``quantize_kv``). The ssm
-    family (rwkv6) adds the WKV state ``ssm_state`` (L, B, H, hd, hd) in
-    fp32 and the token-shift states ``shift_tm``/``shift_cm`` (L, B, D) in
-    the model dtype.
+    Every family has ``pos`` (B,) int32. The attention families (dense,
+    moe, hybrid) add layer-stacked ring buffers ``k``/``v`` (L, B, C, KV*hd)
+    in the model dtype, or, with ``cfg.kv_quant``, in int8 beside
+    per-token-per-head scales ``k_scale``/``v_scale`` (L, B, C, KV) in the
+    model dtype (0 in an empty slot; a prefilled pad slot gets 1.0 from
+    ``quantize_kv``). The hybrid family (Mamba heads) adds the SSM state
+    ``ssm_state`` (L, B, H, hd, N) in fp32 and, with a conv wider than 1,
+    the conv's last inputs ``conv_state`` (L, B, cw-1, H*hd) in the model
+    dtype. The ssm family (rwkv6) has the WKV state ``ssm_state`` (L, B, H,
+    hd, hd) in fp32 and the token-shift states ``shift_tm``/``shift_cm``
+    (L, B, D) in the model dtype.
     """
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise NotImplementedError(
             f"cache for family {cfg.family!r} is not ported yet")
     L, dt = cfg.n_layers, cfg.torch_dtype
@@ -54,4 +57,11 @@ def alloc_cache(cfg: ModelConfig, batch: int, seq_len: int,
         for k in ("k_scale", "v_scale"):
             cache[k] = torch.zeros((L, batch, C, cfg.n_kv_heads), dtype=dt,
                                    device=device)
+    if cfg.family == "hybrid":
+        H, hd, cw = cfg.n_ssm_heads, cfg.ssm.head_dim, cfg.ssm.conv_width
+        cache["ssm_state"] = torch.zeros((L, batch, H, hd, cfg.ssm.state_size),
+                                         dtype=torch.float32, device=device)
+        if cw > 1:
+            cache["conv_state"] = torch.zeros((L, batch, cw - 1, H * hd),
+                                              dtype=dt, device=device)
     return cache

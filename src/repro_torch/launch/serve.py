@@ -5,25 +5,34 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-32b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
 
 Serves ``--arch`` (``dcache-agent-150m`` by default; ``rwkv6-7b``: 7.6 B
 parameters, about 15 GB in bf16; the dense ``granite-3-2b``, ``qwen3-4b``,
 ``phi3-mini-3.8b`` and ``qwen1.5-32b``: 35.2 B parameters, 70.4 GB, one
-H100 at full depth) with random weights from a ``torch.Generator`` seeded
-with 0. ``--smoke`` selects the reduced config (vocab 512); its head dim 16
-has no kernel instance, so it serves on the CPU only.
+H100 at full depth; the hybrid ``hymba-1.5b``, 1.2 B parameters; the MoE
+``mixtral-8x22b`` and ``llama4-maverick-400b-a17b``, 141 B and about 400 B
+parameters, which need several cards at full depth) with random weights
+from a ``torch.Generator`` seeded with 0. On the card the weights' bytes
+are held against the card's free memory before anything is drawn, and the
+launcher raises, naming both, when they do not fit. ``--smoke`` selects
+the reduced config (vocab 512); its head dim 16 has no kernel instance, so
+it serves on the CPU only.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import ALL_IDS, get_config
+from repro_torch.bridge import _dict_map, param_shapes
+from repro_torch.configs import ALL_IDS, ModelConfig, get_config
 from repro_torch.models.model import init_model
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.training.optimizer import tree_leaves
 
 PROMPTS = [
     "Plot the xview1 images from 2022 around Newport Beach",
@@ -35,6 +44,23 @@ PROMPTS = [
     "What does the Denver area look like?",
     "Count the cloudy scenes in sentinel2-2020",
 ]
+
+
+def weight_bytes(cfg: ModelConfig) -> int:
+    """The bytes of ``cfg``'s weights in its dtype."""
+    es = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    return es * sum(tree_leaves(_dict_map(math.prod, param_shapes(cfg))))
+
+
+def check_fits(cfg: ModelConfig, free_bytes: int) -> None:
+    """Raise, naming both numbers, when ``cfg``'s weights need more than
+    ``free_bytes``."""
+    need = weight_bytes(cfg)
+    if need > free_bytes:
+        raise MemoryError(
+            f"{cfg.name} at {cfg.n_layers} layers has {need / 1e9:.2f} GB of "
+            f"{cfg.dtype} weights and the card has {free_bytes / 1e9:.2f} GB "
+            "free")
 
 
 def main(argv=None):
@@ -54,6 +80,8 @@ def main(argv=None):
     if args.smoke:
         cfg = dataclasses.replace(cfg.reduced(), vocab_size=512)
     dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        check_fits(cfg, torch.cuda.mem_get_info(dev)[0])
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_model(cfg, gen, dev)
     eng = ServingEngine(cfg, params, max_batch=args.max_batch,

@@ -1,11 +1,15 @@
-"""The dense and rwkv6 (ssm) decoders and their serving steps
-(``repro.models.model``).
+"""The dense, MoE, hybrid (attention + Mamba heads) and rwkv6 (ssm)
+decoders and their serving steps (``repro.models.model``).
 
 Parameters are a plain dict: ``embed`` (padded_vocab, D), ``final_norm``
 (D,), optionally ``unembed`` (D, padded_vocab), and ``layers``, a list with
-one dict per layer: ``norm1``, ``norm2`` and the ``attn`` and ``mlp``
-weights (dense) or the ``tm`` (time-mix) and ``cm`` (channel-mix) weights
-(ssm). A Python loop over ``layers`` takes the place of ``lax.scan``.
+one dict per layer: ``norm1``, ``norm2`` and the ``attn`` weights with
+either the dense ``mlp`` or, on a layer of ``cfg.moe_layer_mask()`` (the
+last sublayer of each super-layer of ``moe.interleave`` layers), the
+``moe`` weights; the hybrid family adds ``ssm`` (Mamba heads) to every
+layer; the ssm family has the ``tm`` (time-mix) and ``cm`` (channel-mix)
+weights instead. A Python loop over ``layers`` takes the place of JAX's
+``lax.scan`` over (super-)layers.
 
     init_model(cfg, generator, device)          -> params
     forward(cfg, params, batch)                 -> final hidden states
@@ -15,9 +19,10 @@ weights (dense) or the ``tm`` (time-mix) and ``cm`` (channel-mix) weights
 
 ``forward(..., is_train=True)`` (what ``loss_fn`` runs) is the training
 route: every norm, attention and WKV call takes its differentiable torch
-ops, the counterpart of JAX's XLA path, and each layer is rematerialised
-under ``cfg.remat == "block"``. The serving steps pass ``is_train=False``
-and reach the kernels.
+ops, the counterpart of JAX's XLA path, each layer is rematerialised under
+``cfg.remat == "block"``, and each MoE layer adds its load-balancing loss
+to the auxiliary loss. The serving steps pass ``is_train=False`` and reach
+the kernels.
 """
 from __future__ import annotations
 
@@ -31,16 +36,17 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import effective_cache_len
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import mlp_moe, rwkv
+from repro_torch.models import mamba, mlp_moe, rwkv
 from repro_torch.models.common import grad_cast, init_param, rms_norm
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm") or cfg.frontend != "none" \
-            or cfg.is_encdec:
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm") \
+            or cfg.frontend != "none" or cfg.is_encdec:
         raise NotImplementedError(
-            f"family {cfg.family!r} (frontend {cfg.frontend!r}) is not ported "
-            "yet; only the dense decoder and rwkv6 (ssm) are")
+            f"family {cfg.family!r} (frontend {cfg.frontend!r}, "
+            f"{cfg.n_encoder_layers} encoder layers) is not ported yet; the "
+            "dense, moe, hybrid and rwkv6 (ssm) decoders are")
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator,
@@ -56,7 +62,7 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         p["unembed"] = init_param((D, cfg.padded_vocab), generator, dt, dev)
     layers = []
-    for _ in range(cfg.n_layers):
+    for is_moe in cfg.moe_layer_mask():
         lp = {"norm1": torch.ones((D,), dtype=dt, device=dev),
               "norm2": torch.ones((D,), dtype=dt, device=dev)}
         if cfg.family == "ssm":
@@ -64,7 +70,12 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
             lp["cm"] = rwkv.init_channel_mix(cfg, generator, dev)
         else:
             lp["attn"] = attn_mod.init_attention(cfg, generator, dev)
-            lp["mlp"] = mlp_moe.init_mlp(cfg, generator, dev)
+            if cfg.family == "hybrid":
+                lp["ssm"] = mamba.init_mamba(cfg, generator, dev)
+            if is_moe:
+                lp["moe"] = mlp_moe.init_moe(cfg, generator, dev)
+            else:
+                lp["mlp"] = mlp_moe.init_mlp(cfg, generator, dev)
         layers.append(lp)
     p["layers"] = layers
     return p
@@ -94,7 +105,8 @@ def _unembed(cfg: ModelConfig, p: Dict, h: torch.Tensor) -> torch.Tensor:
 def _rwkv_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, *,
                 is_train: bool):
     """One rwkv6 layer over a whole sequence from a zero state and zero
-    token shifts. Returns (x, {"ssm_state", "shift_tm", "shift_cm"})."""
+    token shifts. Returns (x, no aux loss, {"ssm_state", "shift_tm",
+    "shift_cm"})."""
     shift0 = torch.zeros((x.shape[0], cfg.d_model), dtype=x.dtype,
                          device=x.device)
     a_in = rms_norm(x, lp["norm1"], cfg.norm_eps, is_train=is_train)
@@ -103,14 +115,26 @@ def _rwkv_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, *,
     x = x + tm_out
     c_in = rms_norm(x, lp["norm2"], cfg.norm_eps, is_train=is_train)
     cm_out, cm_shift = rwkv.channel_mix(lp["cm"], cfg, c_in, shift0)
-    return x + cm_out, {"ssm_state": s_f, "shift_tm": tm_shift,
-                        "shift_cm": cm_shift}
+    return x + cm_out, None, {"ssm_state": s_f, "shift_tm": tm_shift,
+                              "shift_cm": cm_shift}
 
 
-def _dense_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, *,
-                 is_train: bool, collect_cache: bool, cache_len: int):
-    """One dense layer over a whole sequence. Returns (x, this layer's
-    cache leaves, empty without ``collect_cache``)."""
+def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor, is_train: bool):
+    """A layer's FFN: (out, its load-balancing loss on the training route
+    of a MoE layer, else None)."""
+    if "moe" in lp:
+        aux = mlp_moe.moe_aux_loss(lp["moe"], cfg, x) if is_train else None
+        return mlp_moe.moe(lp["moe"], cfg, x), aux
+    return mlp_moe.mlp(lp["mlp"], cfg, x), None
+
+
+def _attn_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, *,
+                is_train: bool, collect_cache: bool, cache_len: int):
+    """One layer of an attention family over a whole sequence: attention
+    (with the hybrid family's SSM heads beside it on the same normed input,
+    their outputs summed), then the dense or MoE FFN. Returns (x, the
+    layer's aux loss or None, its cache leaves, empty without
+    ``collect_cache``)."""
     a_in = rms_norm(x, lp["norm1"], cfg.norm_eps, is_train=is_train)
     y = {}
     if collect_cache:
@@ -123,9 +147,20 @@ def _dense_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, *,
             y["v"], y["v_scale"] = attn_mod.quantize_kv(y["v"], cfg.n_kv_heads)
     else:
         a_out = attn_mod.attend(lp["attn"], cfg, a_in, is_train=is_train)
+    if "ssm" in lp:
+        s0 = torch.zeros((x.shape[0], cfg.n_ssm_heads, cfg.ssm.head_dim,
+                          cfg.ssm.state_size), dtype=torch.float32,
+                         device=x.device)
+        m_out, s_f, conv = mamba.mamba_mix(lp["ssm"], cfg, a_in, s0)
+        a_out = a_out + m_out
+        if collect_cache:
+            y["ssm_state"] = s_f
+            if conv is not None:
+                y["conv_state"] = conv
     x = x + a_out
     f_in = rms_norm(x, lp["norm2"], cfg.norm_eps, is_train=is_train)
-    return x + mlp_moe.mlp(lp["mlp"], cfg, f_in), y
+    f_out, aux = _ffn(cfg, lp, f_in, is_train)
+    return x + f_out, aux, y
 
 
 def _remat(layer, cfg: ModelConfig):
@@ -140,35 +175,49 @@ def _remat(layer, cfg: ModelConfig):
                              preserve_rng_state=False)
 
 
-def forward(cfg: ModelConfig, params: Dict, batch: Dict, *,
-            is_train: bool = True, collect_cache: bool = False,
-            cache_len: int = 0):
-    """Final hidden states (B,S,D) and, with ``collect_cache``, the
-    layer-stacked cache: the ring buffers {"k", "v"} of
-    (L,B,cache_len,KV*hd) for the dense family (with ``cfg.kv_quant`` int8
-    codes and {"k_scale", "v_scale"} (L,B,cache_len,KV); attention itself
-    runs on the unquantized K/V, as in JAX), the recurrent state
-    {"ssm_state" (L,B,H,hd,hd) fp32, "shift_tm", "shift_cm" (L,B,D)} for
-    ssm. As in JAX, ``is_train`` is the default: the training route (module
-    docstring); the serving steps pass ``is_train=False``."""
+def _stack(cfg: ModelConfig, params: Dict, batch: Dict, *, is_train: bool,
+           collect_cache: bool, cache_len: int):
+    """(final hidden states, aux loss (fp32 scalar), cache or None): JAX's
+    ``forward``."""
     _check_family(cfg)
     x = _embed_tokens(cfg, params, batch)
     if cfg.family == "ssm":
         layer = functools.partial(_rwkv_layer, cfg, is_train=is_train)
     else:
-        layer = functools.partial(_dense_layer, cfg, is_train=is_train,
+        layer = functools.partial(_attn_layer, cfg, is_train=is_train,
                                   collect_cache=collect_cache,
                                   cache_len=cache_len)
     if is_train and cfg.remat != "none":
         layer = _remat(layer, cfg)
     leaves = {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
-        x, y = layer(lp, x)
+        x, a, y = layer(lp, x)
+        if a is not None:
+            aux = aux + a
         for k, t in y.items():
             leaves.setdefault(k, []).append(t)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps, is_train=is_train)
     cache = ({k: torch.stack(ts) for k, ts in leaves.items()}
              if collect_cache else None)
+    return h, aux, cache
+
+
+def forward(cfg: ModelConfig, params: Dict, batch: Dict, *,
+            is_train: bool = True, collect_cache: bool = False,
+            cache_len: int = 0):
+    """Final hidden states (B,S,D) and, with ``collect_cache``, the
+    layer-stacked cache: the ring buffers {"k", "v"} of
+    (L,B,cache_len,KV*hd) for the attention families (with ``cfg.kv_quant``
+    int8 codes and {"k_scale", "v_scale"} (L,B,cache_len,KV); attention
+    itself runs on the unquantized K/V, as in JAX), for hybrid also the SSM
+    state {"ssm_state" (L,B,H,hd,N) fp32, "conv_state" (L,B,cw-1,H*hd)};
+    the recurrent state {"ssm_state" (L,B,H,hd,hd) fp32, "shift_tm",
+    "shift_cm" (L,B,D)} for ssm. As in JAX, ``is_train`` is the default:
+    the training route (module docstring); the serving steps pass
+    ``is_train=False``. ``loss_fn`` also takes the MoE aux loss."""
+    h, _, cache = _stack(cfg, params, batch, is_train=is_train,
+                         collect_cache=collect_cache, cache_len=cache_len)
     return h, cache
 
 
@@ -202,10 +251,11 @@ def chunked_xent(cfg: ModelConfig, params: Dict, h: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
             aux_weight: float = 0.01):
-    """(total, {"loss", "aux_loss", "accuracy"}) on the training route. The
-    dense and ssm families have no auxiliary loss, so aux is 0."""
-    h, _ = forward(cfg, params, batch, is_train=True)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    """(total, {"loss", "aux_loss", "accuracy"}) on the training route;
+    total = loss + aux_weight * aux, where aux sums the MoE layers'
+    load-balancing losses (0 for the other families)."""
+    h, aux, _ = _stack(cfg, params, batch, is_train=True, collect_cache=False,
+                       cache_len=0)
     # keep the backward residual stream in the model dtype
     loss, acc = chunked_xent(cfg, params, grad_cast(h, cfg.torch_dtype),
                              batch["targets"])
@@ -220,9 +270,11 @@ def prefill_step(cfg: ModelConfig, params: Dict, batch: Dict,
 
     ``true_lens`` (B,) supports right-padded prompts: logits are taken at
     each row's true last token and decoding starts there; the padded ring
-    slots are masked at decode because their slot position exceeds pos.
-    The recurrent (ssm) state has no such mask: its prompts must not be
-    padded (the engine prefills them at their exact length)."""
+    slots are masked at decode because their slot position exceeds pos,
+    as long as the padded length fits the ring (the engine prefills longer
+    buckets at their exact length). The recurrent (ssm, hybrid) state has
+    no such mask: its prompts must not be padded. A MoE layer routes pad
+    tokens too, and they take expert capacity, as in JAX."""
     B, S = batch["tokens"].shape
     C = effective_cache_len(cfg, max_len or S)
     h, cache = forward(cfg, params, batch, is_train=False, collect_cache=True,
@@ -263,10 +315,10 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                 cache: Dict):
     """One decode step for the whole batch. tokens: (B,1).
 
-    The cache's buffers (K/V and, with kv_quant, their scales, or the
-    recurrent state and token shifts) are updated IN PLACE (the JAX version
-    returns a new cache); ``pos`` is replaced by pos + 1. Returns (logits,
-    cache)."""
+    The cache's buffers (K/V and, with kv_quant, their scales; the hybrid
+    family's SSM and conv states; or the recurrent state and token shifts)
+    are updated IN PLACE (the JAX version returns a new cache); ``pos`` is
+    replaced by pos + 1. Returns (logits, cache)."""
     _check_family(cfg)
     x = params["embed"][tokens.long()]
     pos = cache["pos"]
@@ -280,9 +332,17 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             a_out = attn_mod.decode_attend(lp["attn"], cfg, a_in, pos,
                                            cache["k"][l], cache["v"][l],
                                            *scales)[0]
+            if "ssm" in lp:
+                conv = cache["conv_state"][l] if "conv_state" in cache else None
+                m_out, s2, c2 = mamba.mamba_step(lp["ssm"], cfg, a_in,
+                                                 cache["ssm_state"][l], conv)
+                cache["ssm_state"][l].copy_(s2)
+                if conv is not None:
+                    conv.copy_(c2)
+                a_out = a_out + m_out
             x = x + a_out
             f_in = rms_norm(x, lp["norm2"], cfg.norm_eps)
-            x = x + mlp_moe.mlp(lp["mlp"], cfg, f_in)
+            x = x + _ffn(cfg, lp, f_in, is_train=False)[0]
     cache["pos"] = pos + 1
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h), cache

@@ -9,6 +9,18 @@ hybrid) prompts are prefilled at their exact length, since pad tokens would
 pass through the recurrent state and the token shift. Completed rows free
 their slot. Prefill and decode run under ``torch.no_grad()``, so trained
 params that still require grad build no graph.
+
+Two deviations from the reference engine, both repairs:
+
+- A prompt whose bucket is longer than the ring (``effective_cache_len``,
+  bounded by a sliding window or an attention chunk) is prefilled at its
+  exact length too. Padded, ``pack_ring`` would keep the last C *padded*
+  positions, and decode would read pad slots as in-window tokens while the
+  true ones are gone (the reference's ``serving/engine.py:117-123`` with
+  ``models/attention.py:162-164``).
+- Decode samples each slot at its own ``Request.temperature``; the
+  reference samples every decode token greedily (``serving/engine.py:149``).
+  A batch of greedy slots still takes the argmax and draws nothing.
 """
 from __future__ import annotations
 
@@ -21,7 +33,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.configs.shapes import alloc_cache
+from repro_torch.configs.shapes import alloc_cache, effective_cache_len
 from repro_torch.models.model import decode_step, prefill_step
 from repro_torch.serving.sampler import sample
 from repro_torch.serving.tokenizer import MIN_VOCAB, ByteTokenizer
@@ -96,15 +108,25 @@ class ServingEngine:
         self.waiting.append(req)
         return req
 
+    def _prefill_len(self, n: int) -> int:
+        """The length a prompt of n tokens is prefilled at: its bucket, or n
+        for a recurrent family (pad tokens would enter the state) and for a
+        bucket longer than the ring (the padded tail would push true tokens
+        out of it)."""
+        bucket = _bucket(n, self.max_len)
+        if self.cfg.family in ("ssm", "hybrid") \
+                or bucket > effective_cache_len(self.cfg, self.max_len):
+            return n
+        return bucket
+
     @torch.no_grad()
     def _admit(self):
-        exact = self.cfg.family in ("ssm", "hybrid")  # recurrent state: no pad
         for slot in range(self.max_batch):
             if self.slots[slot] is not None or not self.waiting:
                 continue
             req = self.waiting.pop(0)
             n = len(req.prompt_ids)
-            bucket = n if exact else _bucket(n, self.max_len)
+            bucket = self._prefill_len(n)
             ids = req.prompt_ids + [0] * (bucket - n)
             batch = {"tokens": torch.tensor([ids], dtype=torch.int32,
                                             device=self.device)}
@@ -132,7 +154,9 @@ class ServingEngine:
         logits, self.cache = decode_step(
             self.cfg, self.params, torch.from_numpy(tokens).to(self.device),
             self.cache)
-        nxt = sample(logits[:, -1].float(), self._gen).cpu().numpy()
+        temps = [r.temperature if r is not None else 0.0 for r in self.slots]
+        nxt = sample(logits[:, -1].float(), self._gen,
+                     temperature=temps).cpu().numpy()
         pos = self.cache["pos"].cpu().numpy()
         self.steps += 1
         for i in active:

@@ -5,6 +5,7 @@ either side's ``TrainLoop`` restored by the other's, bit for bit.
 
 Every comparison here is exact: the format moves bytes, never values.
 """
+import dataclasses
 import os
 import zlib
 
@@ -210,15 +211,19 @@ def test_msgpack_unpack_raises_on_truncated_and_trailing_data():
 # records and files against JAX's
 # ---------------------------------------------------------------------------
 
-ARCHS = ["dcache-agent-150m", "rwkv6-7b", "qwen1.5-32b"]
+ARCHS = ["dcache-agent-150m", "rwkv6-7b", "qwen1.5-32b", "mixtral-8x22b",
+         "llama4-maverick-400b-a17b", "hymba-1.5b"]
+# llama4 at 4 layers: two super-layers, so dec/mlp and dec/moe regroup
+LAYERS = {"llama4-maverick-400b-a17b": 4}
 
 
 def loop_state(arch, seed=0):
     """A TrainLoop checkpoint's contents for the reduced ``arch`` in bf16,
     as JAX trees and as the port's: params (rwkv6 and qwen1.5's QKV biases
     with noise on their zero leaves), random fp32 moments, and step 5."""
-    jcfg = jax_get_config(arch).reduced()
-    tcfg = get_config(arch).reduced()
+    kw = {"n_layers": LAYERS[arch]} if arch in LAYERS else {}
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), **kw)
+    tcfg = dataclasses.replace(get_config(arch).reduced(), **kw)
     if arch == "rwkv6-7b":
         _, tree = noisy_jax_params(jcfg, seed)
     else:

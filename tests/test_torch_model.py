@@ -147,8 +147,8 @@ def test_bf16_prefill_and_decode_close_to_jax():
 def test_unported_features_raise():
     _, tcfg = configs()
     gen = torch.Generator().manual_seed(0)
-    for kw in (dict(frontend="vision_patches"), dict(family="moe"),
-               dict(family="hybrid")):
+    for kw in (dict(frontend="vision_patches"), dict(n_encoder_layers=2),
+               dict(frontend="audio_frames")):
         with pytest.raises(NotImplementedError):
             tmodel.init_model(dataclasses.replace(tcfg, **kw), gen, "cpu")
 

@@ -154,3 +154,32 @@ def test_prompt_length_at_prefill(setup, ssm_setup, monkeypatch, arch):
     expect = lens if arch == "rwkv6-7b" else [engine_mod._bucket(n, 96) for n in lens]
     assert [s for s, _ in seen] == expect
     assert expect != lens or arch == "rwkv6-7b"
+
+
+# ---------------------------------------------------------------------------
+# the launcher: the MoE and hybrid archs, and the memory check before drawing
+# ---------------------------------------------------------------------------
+
+def test_launcher_refuses_weights_over_free_memory():
+    from repro_torch.launch.serve import check_fits, weight_bytes
+
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=12)
+    need = weight_bytes(cfg)
+    assert need == 2 * 30_451_390_464          # 60.9 GB of bf16 weights
+    check_fits(cfg, need)
+    with pytest.raises(MemoryError, match=r"60\.90 GB .* 60\.00 GB free"):
+        check_fits(cfg, 60_000_000_000)
+    full = get_config("llama4-maverick-400b-a17b")
+    with pytest.raises(MemoryError, match="795.39 GB"):
+        check_fits(full, 85_000_000_000)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-maverick-400b-a17b",
+                                  "hymba-1.5b"])
+def test_launcher_serves_new_archs_on_cpu(arch, capsys):
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests",
+                "3", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert out.count(" -> ") == 3 and "'finished': 3" in out

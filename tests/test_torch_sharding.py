@@ -137,7 +137,8 @@ def test_sharding_context_one_device_and_refuses_more():
 # ---------------------------------------------------------------------------
 
 ARCHS = ["dcache-agent-150m", "rwkv6-7b", "qwen3-4b", "granite-3-2b",
-         "phi3-mini-3.8b", "qwen1.5-32b"]
+         "phi3-mini-3.8b", "qwen1.5-32b", "mixtral-8x22b",
+         "llama4-maverick-400b-a17b", "hymba-1.5b"]
 
 
 def jax_abstract(cfg):
@@ -188,3 +189,19 @@ def test_every_leaf_spec_equals_jax(arch, mesh, table):
         assert tuple(sh.spec) == tuple(want), jax.tree_util.keystr(path)
         n += 1
     assert n == len(jax.tree.leaves(shapes, is_leaf=lambda x: isinstance(x, tuple)))
+
+
+def test_expert_specs_mirror_reference():
+    """tests/test_perf_features.py::test_serve_rules_divisibility on the
+    full-width experts: under expert-parallel rules llama4's 128 experts
+    shard over ``data``, mixtral's 8 fall back to replication."""
+    ep = tsh.expert_parallel_rules(single_pod_rules())
+    assert tsh.serve_rules(single_pod_rules()) == jsh.serve_rules(
+        jsh.single_pod_rules())
+    got = {}
+    for arch in ("llama4-maverick-400b-a17b", "mixtral-8x22b"):
+        cfg = get_config(arch)
+        specs = tree_shardings(param_axes(cfg), param_shapes(cfg), MESH1, ep)
+        got[arch] = tuple(specs["dec"]["moe"]["we_gate"].spec)
+    assert got["llama4-maverick-400b-a17b"][1] == "data"
+    assert got["mixtral-8x22b"][1] is None
