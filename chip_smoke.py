@@ -25,14 +25,20 @@ Phases (any failure exits non-zero; nothing is caught):
      qk_norm shapes (q (2,37,8,4,128), k (2,37,8,128)), its C++ launch
      geometry equal to kernels/rmsnorm.py's; WKV around its
      staged chunk of T steps (T - 1, T, T + 1), at S = 512, from a random
-     state and in place, its state bit-identical to the plain version's. A
-     misaligned view of an attention (bf16 or int8) or WKV input must raise
-     and launch nothing. Time kernel, plain version and the library call
+     state and in place, its state bit-identical to the plain version's;
+     flash at llava's heads (d 128, G 7) at its image request's length (S
+     2,912) and at S 2,917, both ragged; prompts of S 32 (seamless's padded
+     decoder prompt) and decode rings of 256 slots (seamless's
+     cross-attention: the encoder's K/V of a cache layer, pos = C - 1) at
+     every served head shape. A misaligned view of an attention (bf16 or int8)
+     or WKV input must raise and launch nothing. Time kernel, plain version and the library call
      (CUDA events, median of 50) at each served path's shapes (dcache,
-     qwen3-4b, phi3-mini-3.8b, qwen1.5-32b's decode, mixtral's G 6 and
-     llama4's G 5 at d 128), prefill also at S = 512, and an empty kernel
-     (the launch floor);
-  3. serve ten paths at full width in bf16, each with random weights from
+     qwen3-4b, phi3-mini-3.8b, qwen1.5-32b's decode, mixtral's G 6,
+     llama4's G 5 and llava's G 7 at d 128, seamless's MHA at d 64),
+     prefill also at S = 512, llava's image prefill, seamless's encoder
+     unmasked at its 256 frames, its cross-attention decode at C 256, and
+     an empty kernel (the launch floor);
+  3. serve twelve paths at full width in bf16, each with random weights from
      a seeded torch.Generator, through ServingEngine(max_batch=4,
      max_len=512) (8 prompts x 32 new tokens) and then one
      TorchLLM.complete: dcache-agent-150m (dense: rmsnorm, prefill and
@@ -46,8 +52,18 @@ Phases (any failure exits non-zero; nothing is caught):
      llama4-maverick-400b-a17b (d 128, G 5; 4 of 48 layers, two dense/MoE
      super-layers, 128 experts and the shared one: 35.04 B parameters,
      70.1 GB) and hymba-1.5b (d 64, G 3, Mamba heads beside attention, full
-     depth); each depth is fixed and asserted to fit the card's free memory
-     before anything is drawn. MoE and hybrid launch only the dense rule's
+     depth), then the encoder-decoder and the VLM: seamless-m4t-large-v2
+     (24 + 24 layers, d 64 MHA; the engine does not take it, so 4 requests
+     of 256 frames and a 16-32 token prompt go through
+     launch.serve.generate_encdec: prefill_step, ring 512, and 32 greedy
+     decode_steps; the encoder's attention on the flash kernel unmasked,
+     cross-attention decode on the decode kernel) and llava-next-34b at
+     full depth (d 128, G 7; 68.88 GB; text through the engine, then one
+     image request: 2,880 patches before a 32-token prompt through
+     prefill_step, ring 4,096, B 1, and 32 decode_steps, after the
+     engine's cache is freed); each depth is fixed and asserted to fit the
+     card's free memory (with llava's image ring) before anything is
+     drawn. MoE and hybrid launch only the dense rule's
      kernels (the expert products and the SSM scan are torch ops, as they
      are XLA ops in JAX). The launch counters are reset before each path
      and must then equal the exact numbers the path implies. Profile a
@@ -61,9 +77,10 @@ Phases (any failure exits non-zero; nothing is caught):
      on the gathered view) must equal its plain version, with exact launch
      counts;
   4. for the first three paths, qwen3-4b, phi3-mini-3.8b, qwen1.5-32b,
-     mixtral-8x22b (MoE, G 6) and hymba-1.5b (attention and Mamba heads):
-     every head dim and group of phase 3 but llama4's G 5, the full-width
-     weights cut to 2 layers, in fp32,
+     mixtral-8x22b (MoE, G 6), hymba-1.5b (attention and Mamba heads),
+     seamless-m4t-large-v2 (64 frames a prompt) and llava-next-34b (16
+     patches before each prompt): every head dim and group of phase 3 but
+     llama4's G 5, the full-width weights cut to 2 layers, in fp32,
      on the CPU (plain versions) and on the card (kernels): prefill + 8
      greedy decode steps on 3 prompts; logits within 1e-3 and the same greedy
      tokens (or a top-2 gap within the tolerance where a token differs); the
@@ -135,7 +152,10 @@ PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-PROFILE_ITERS = 10              # calls per profiled step or prefill
+# calls per profiled step or prefill: the profiler's own processing of
+# every launch is most of a host-bound path's phase 3 time (each profile
+# logs its seconds), and a step's device time varies < 3% between calls
+PROFILE_ITERS = 3
 # each wrapper's kernel names in the profiler (a substring of each instance)
 KERNEL_NEEDLES = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "flash_kernel",
                   "decode_attention": "decode_kernel",
@@ -244,7 +264,13 @@ SERVED_PATHS = (("dcache-agent-150m", False, None), ("dcache-agent-150m", True, 
                 ("rwkv6-7b", False, None), ("qwen3-4b", False, None),
                 ("granite-3-2b", False, None), ("phi3-mini-3.8b", False, None),
                 ("qwen1.5-32b", False, None), ("mixtral-8x22b", False, 12),
-                ("llama4-maverick-400b-a17b", False, 4), ("hymba-1.5b", False, None))
+                ("llama4-maverick-400b-a17b", False, 4), ("hymba-1.5b", False, None),
+                ("seamless-m4t-large-v2", False, None),
+                ("llava-next-34b", False, None))
+# llava's image request: 2,880 patches (anyres, 5 tiles x 576) before a
+# 32-token prompt, in a ring of 4,096 slots; seamless's requests: 256
+# frames each (cross_k of cache_specs' max_len // 2 at max_len 512)
+IMAGE_TEXT, IMAGE_MAX_LEN, ENC_FRAMES = 32, 4096, 256
 
 
 def served_shapes():
@@ -291,6 +317,7 @@ def check_kernels(errs):
         # path serves
         for d, Hq, Hkv in heads + [(96, 16, 4)]:
             check_attention(gen, dtype, d, Hq, Hkv, errs)
+        check_image_prefill(gen, dtype, errs)
         check_group16(gen, dtype, errs)
         for d in HEAD_DIMS:
             check_int8(gen, dtype, d, errs)
@@ -303,7 +330,8 @@ def check_attention(gen, dtype, d, Hq, Hkv, errs):
     """Flash and decode attention at head dim d and group Hq / Hkv: prompts
     of S = 8..512 whose packed rows (S * G) cross a 64-row tile's edge,
     under causal, window, chunk and no mask; decode rings of 64, 100 (not a
-    multiple of the 8 splits, the last range short) and 512 slots (pos in
+    multiple of the 8 splits, the last range short), 256 (seamless's
+    cross-attention ring of encoder frames at pos = C - 1) and 512 slots (pos in
     {0, 1, 63, 64}: whole splits masked or empty), with windows and chunks
     and a window that ends inside a split."""
     from repro_torch.kernels import ops
@@ -311,7 +339,7 @@ def check_attention(gen, dtype, d, Hq, Hkv, errs):
     from repro_torch.kernels.flash_attention import flash_attention_plain
 
     B, tag = 4, f"d={d} G={Hq // Hkv}"
-    for S in (8, 9, 37, 64, 256, 512):
+    for S in (8, 9, 32, 37, 64, 256, 512):
         # the model's layouts: q (1,S,Hq,d), k/v (1,S,Hkv,d), seen as (B,H,S,d)
         q = randn(gen, 1, S, Hq, d, dtype=dtype).transpose(1, 2)
         k = randn(gen, 1, S, Hkv, d, dtype=dtype).transpose(1, 2)
@@ -322,7 +350,7 @@ def check_attention(gen, dtype, d, Hq, Hkv, errs):
             compare("flash_attention", f"{tag} S={S} {mask}",
                     ops.flash_attention(q, k, v, **kw),
                     flash_attention_plain(q, k, v, **kw), dtype, errs)
-    for C in (64, 100, 512):
+    for C in (64, 100, ENC_FRAMES, 512):
         kc = randn(gen, B, C, Hkv * d, dtype=dtype)   # the cache slice
         vc = randn(gen, B, C, Hkv * d, dtype=dtype)
         k = kc.view(B, C, Hkv, d).transpose(1, 2)
@@ -344,6 +372,23 @@ def check_attention(gen, dtype, d, Hq, Hkv, errs):
         compare("decode_attention", f"{tag} C={C} window40 ends mid-split",
                 ops.decode_attention(q, k, v, p, window=40),
                 decode_attention_plain(q, k, v, p, window=40), dtype, errs)
+
+
+def check_image_prefill(gen, dtype, errs):
+    """Flash at llava's heads (d 128, 56 q over 8 KV: G 7) at its image
+    request's length, 2,880 patches + 32 text tokens (ragged: S * G =
+    20,384 packed rows, 32 past a 64-row tile), and at 2,880 + 37 (20,419
+    rows, 3 past a tile), causal."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    for S in (2880 + IMAGE_TEXT, 2880 + 37):
+        q = randn(gen, 1, S, 56, 128, dtype=dtype).transpose(1, 2)
+        k = randn(gen, 1, S, 8, 128, dtype=dtype).transpose(1, 2)
+        v = randn(gen, 1, S, 8, 128, dtype=dtype).transpose(1, 2)
+        compare("flash_attention", f"d=128 G=7 S={S} causal (image prefill)",
+                ops.flash_attention(q, k, v), flash_attention_plain(q, k, v),
+                dtype, errs)
 
 
 def check_rmsnorm_geometry():
@@ -579,10 +624,11 @@ def check_wkv(errs):
         same_state(f"B=4 S=1 s0 in place {name}", state, sp)
 
 
-def time_decode(gen, B, Hq, Hkv, C, d, int8=False):
+def time_decode(gen, B, Hq, Hkv, C, d, int8=False, pos=None):
     """Decode attention (or its int8 variant) in bf16 at a decode step over
-    a full ring of C slots: kernel, plain version, SDPA (bf16 only), the
-    kernel's profiled device time and its bound."""
+    a full ring of C slots (``pos`` (B,) given, or past the ring's end):
+    kernel, plain version, SDPA (bf16 only), the kernel's profiled device
+    time and its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (
@@ -590,8 +636,8 @@ def time_decode(gen, B, Hq, Hkv, C, d, int8=False):
 
     dt, es = torch.bfloat16, 2
     q = randn(gen, B, Hq, d, dtype=dt)
-    pos = torch.tensor([C + 3, C + 40, 2 * C + 5, 3 * C][:B], dtype=torch.int32,
-                       device="cuda")
+    pos = torch.tensor(pos or [C + 3, C + 40, 2 * C + 5, 3 * C][:B],
+                       dtype=torch.int32, device="cuda")
     valid = sum(min(int(p) + 1, C) for p in pos)
     n_split, per = split_geometry(C)
     if int8:
@@ -628,9 +674,10 @@ def time_decode(gen, B, Hq, Hkv, C, d, int8=False):
                 bound_ms=b, bound_by=by)
 
 
-def time_flash(gen, Hq, Hkv, S, d):
-    """Causal prefill attention in bf16 at B = 1 in the model's layouts:
-    kernel, plain version, SDPA, profiled device time and the bound."""
+def time_flash(gen, Hq, Hkv, S, d, causal=True):
+    """Prefill attention in bf16 at B = 1 in the model's layouts, causal or
+    unmasked: kernel, plain version, SDPA, profiled device time and the
+    bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_plain
@@ -639,19 +686,20 @@ def time_flash(gen, Hq, Hkv, S, d):
     q = randn(gen, 1, S, Hq, d, dtype=dt).transpose(1, 2)
     k = randn(gen, 1, S, Hkv, d, dtype=dt).transpose(1, 2)
     v = randn(gen, 1, S, Hkv, d, dtype=dt).transpose(1, 2)
-    pairs = S * (S + 1) // 2
+    pairs = S * (S + 1) // 2 if causal else S * S
     nb = (2 * Hq + 2 * Hkv) * S * d * es
     b, by = bound_ms(nb, 4 * pairs * Hq * d, dt)
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qc, kc, vc, is_causal=True, enable_gqa=True)
+        qc, kc, vc, is_causal=causal, enable_gqa=True)
+    run = lambda: ops.flash_attention(q, k, v, causal=causal)  # noqa: E731
     return dict(
-        shape=f"q (1,{Hq},{S},{d}), k/v (1,{Hkv},{S},{d}) bf16, causal",
-        ms=time_ms(lambda: ops.flash_attention(q, k, v)),
-        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v)),
+        shape=f"q (1,{Hq},{S},{d}), k/v (1,{Hkv},{S},{d}) bf16, "
+              + ("causal" if causal else "unmasked"),
+        ms=time_ms(run),
+        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, causal=causal)),
         library_ms=time_ms(sdpa), library_device_us=all_device_us(sdpa),
-        device_us=kernel_device_us(device_profile(
-            lambda: ops.flash_attention(q, k, v), 20)[0], "flash_kernel"),
+        device_us=kernel_device_us(device_profile(run, 20)[0], "flash_kernel"),
         bound_ms=b, bound_by=by)
 
 
@@ -690,8 +738,14 @@ def time_kernels():
                             ("decode_attention_phi3", 32, 32, 96),
                             ("decode_attention_qwen1.5", 40, 40, 128),
                             ("decode_attention_mixtral", 48, 8, 128),
-                            ("decode_attention_llama4", 40, 8, 128)):
+                            ("decode_attention_llama4", 40, 8, 128),
+                            ("decode_attention_llava", 56, 8, 128),
+                            ("decode_attention_seamless", 16, 16, 64)):
         rows[key] = time_decode(gen, 4, Hq, Hkv, 512, d)
+    # seamless's cross-attention at a decode step: the encoder's 256 slots,
+    # pos = 255 (every slot kept)
+    rows["decode_attention_cross_seamless"] = time_decode(
+        gen, 4, 16, 16, ENC_FRAMES, 64, pos=[ENC_FRAMES - 1] * 4)
     for key, Hq, Hkv, d in (("decode_attention_int8", 12, 4, 64),
                             ("decode_attention_int8_qwen3", 32, 8, 128)):
         rows[key] = time_decode(gen, 4, Hq, Hkv, 512, d, int8=True)
@@ -702,10 +756,17 @@ def time_kernels():
                             ("flash_attention_qwen3", 32, 8, 128),
                             ("flash_attention_phi3", 32, 32, 96),
                             ("flash_attention_mixtral", 48, 8, 128),
-                            ("flash_attention_llama4", 40, 8, 128)):
+                            ("flash_attention_llama4", 40, 8, 128),
+                            ("flash_attention_llava", 56, 8, 128)):
         for S in (64, 512):
             rows[key + ("_s512" if S == 512 else "")] = time_flash(
                 gen, Hq, Hkv, S, d)
+    # llava's image prefill (patches + text) and seamless's encoder over
+    # its frames, unmasked
+    rows["flash_attention_llava_image"] = time_flash(
+        gen, 56, 8, 2880 + IMAGE_TEXT, 128)
+    rows["flash_attention_seamless_encoder"] = time_flash(
+        gen, 16, 16, ENC_FRAMES, 64, causal=False)
 
     # rmsnorm at the rwkv6-7b decode step's shapes: norm1/norm2 (4,1,4096)
     # and the per-head ln_x norm, 4*64 rows of 64
@@ -780,11 +841,22 @@ def expected_launches(cfg, prefills, steps):
     attention per layer at each step; rwkv6 runs rmsnorm three times a
     layer (norm1, norm2, the per-head ln_x norm) and once at the end, and
     the WKV kernel per layer at every prefill and step. With kv_quant every
-    decode attention launch is the int8 kernel's."""
+    decode attention launch is the int8 kernel's. The encoder-decoder adds
+    to each prefill its encoder's Le layers (rmsnorm twice a layer and once
+    at the end, flash unmasked once a layer) and to every decoder layer a
+    third rmsnorm and the cross-attention: torch ops at a prefill, the
+    decode kernel at a step. The vlm family takes the dense rule, an image
+    prefill included."""
     L, n = cfg.n_layers, prefills + steps
     if cfg.family == "ssm":
         return {"rmsnorm": (3 * L + 1) * n, "flash_attention": 0,
                 "decode_attention": 0, "decode_attention_int8": 0, "wkv": L * n}
+    if cfg.is_encdec:
+        Le = cfg.n_encoder_layers
+        return {"rmsnorm": (2 * Le + 1) * prefills + (3 * L + 1) * n,
+                "flash_attention": (Le + L) * prefills,
+                "decode_attention": 2 * L * steps, "decode_attention_int8": 0,
+                "wkv": 0}
     decode = "decode_attention_int8" if cfg.kv_quant else "decode_attention"
     norms = 4 if cfg.qk_norm else 2
     out = {"rmsnorm": (norms * L + 1) * n, "flash_attention": L * prefills,
@@ -795,10 +867,6 @@ def expected_launches(cfg, prefills, steps):
 
 def cache_bytes(cache):
     return sum(t.numel() * t.element_size() for k, t in cache.items() if k != "pos")
-
-
-def key_of(what):
-    return "decode" if what.startswith("decode") else "prefill"
 
 
 def serve_bytes(cfg, max_batch=4, max_len=512):
@@ -813,33 +881,37 @@ def serve_bytes(cfg, max_batch=4, max_len=512):
 
 def decode_read_bytes(cfg, rows=4):
     """The weight bytes a decode step of ``rows`` tokens must read: every
-    leaf, but of an untied input embedding only the rows it gathers."""
+    leaf but the frontend's projection and the encoder (run at prefill
+    only), and of an untied input embedding only the rows it gathers."""
+    from repro_torch.bridge import _dict_map, param_shapes
     from repro_torch.launch.serve import weight_bytes
 
-    nbytes = weight_bytes(cfg)
+    es = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    skip = {k: v for k, v in param_shapes(cfg).items()
+            if k in ("enc", "frame_proj", "patch_proj")}
+    nbytes = weight_bytes(cfg) - es * sum(tree_leaves(_dict_map(math.prod, skip)))
     if not cfg.tie_embeddings:
-        es = torch.empty((), dtype=cfg.torch_dtype).element_size()
         nbytes -= (cfg.padded_vocab - rows) * cfg.d_model * es
     return nbytes
 
 
-def serve_full_width(arch, kv_quant=False, n_layers=None):
-    from repro_torch.agent import TorchLLM
-    from repro_torch.configs import alloc_cache, get_config
-    from repro_torch.kernels import ops
-    from repro_torch.models.model import (_unembed, decode_step, init_model,
-                                          prefill_step)
-    from repro_torch.serving import ServingEngine
+def load_path(arch, kv_quant=False, n_layers=None, extra_bytes=0):
+    """``arch`` (depth cut to ``n_layers`` if given) with seeded random bf16
+    weights on the card, after asserting that they, the engine's cache and
+    ``extra_bytes`` fit its free memory. Returns (cfg, params, generator,
+    metrics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_model
 
     full = get_config(arch)
     cfg = dataclasses.replace(full, kv_quant=kv_quant,
                               n_layers=n_layers or full.n_layers)
-    free, need = torch.cuda.mem_get_info()[0], serve_bytes(cfg)
+    free, need = torch.cuda.mem_get_info()[0], serve_bytes(cfg) + extra_bytes
     assert need < free, (f"{arch}: weights and cache at {cfg.n_layers} layers "
                          f"need {need / 2**30:.2f} GiB, {free / 2**30:.2f} GiB free")
     cut = ("full depth" if cfg.n_layers == full.n_layers else
            f"depth cut from {full.n_layers} layers, width unchanged")
-    log(f"  {arch}: weights and cache {need / 2**30:.2f} GiB of "
+    log(f"  {arch}: weights, cache and requests {need / 2**30:.2f} GiB of "
         f"{free / 2**30:.2f} GiB free on the card at {cfg.n_layers} layers "
         f"({cut})")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -858,6 +930,89 @@ def serve_full_width(arch, kv_quant=False, n_layers=None):
         f"{cfg.dtype}, L={cfg.n_layers} d={cfg.d_model}, family {cfg.family}; "
         f"init {m['init_s']:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         f"allocated")
+    return cfg, params, gen, m
+
+
+def profile_path(cfg, m, tag, cases):
+    """Where a step's time goes: for each (key, label, fn, iters) of
+    ``cases`` the device time by kernel, the busy share, the launch API
+    calls and each kernel's launches and device time per launch, into
+    ``m`` under ``key``; the profiler's table into chiprun_out/."""
+    from repro_torch.kernels import ops
+
+    for key, what, fn, iters in cases:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        per_call, busy, wall_us, api_launches = device_profile(
+            fn, iters, f"profile_{tag}_{'decode_step' if key == 'decode' else key}.txt")
+        m[f"{key}_profile_s"] = time.perf_counter() - t0
+        # device_profile calls fn once to warm up, then iters times
+        launches = {k: v / (iters + 1)
+                    for k, v in ops.launch_counts().items() if v}
+        dev_us = sum(per_call.values())
+        top = sorted(per_call.items(), key=lambda kv: -kv[1])[:6]
+        # each kernel's device time per launch inside the step or prefill
+        in_step = {n: kernel_device_us(per_call, KERNEL_NEEDLES[n]) / c
+                   for n, c in launches.items()}
+        if key == "decode" and (cfg.family in ("moe", "encdec", "vlm")):
+            log(f"  decode step device {dev_us / 1e3:.3f} ms against the "
+                f"weights-read floor {m['weights_read_floor_ms']:.3f} ms "
+                f"({decode_read_bytes(cfg) / 1e9:.2f} GB at 3.35 TB/s)")
+        log(f"  profile {what} ({iters} calls, {m[f'{key}_profile_s']:.1f} s "
+            f"with the profiler's processing): host wall {wall_us / 1e3:.3f} ms/call, device "
+            f"{dev_us / 1e3:.3f} ms/call, device busy {100 * busy:.1f}%; "
+            f"launch API calls/call {api_launches:.1f}; "
+            f"kernel launches/call {launches}; device us per launch "
+            + ", ".join(f"{n} {t:.2f}" for n, t in in_step.items()) + "; top: "
+            + "; ".join(f"{k[:48]} {t:.1f} us" for k, t in top))
+        m[f"{key}_per_launch_us"] = in_step
+        m[f"{key}_wall_ms"] = wall_us / 1e3
+        m[f"{key}_device_ms"] = dev_us / 1e3
+        m[f"{key}_busy"] = busy
+        m[f"{key}_launch_api_calls"] = api_launches
+        m[f"{key}_top_us"] = dict(top)
+
+
+def check_unembed(cfg, params, gen, m):
+    """The unembed at a decode step: the bf16 GEMM with fp32 output against
+    an fp32 copy of the weight (same accumulation, extra traffic)."""
+    from repro_torch.models.model import _unembed
+
+    h = torch.randn((4, 1, cfg.d_model), generator=gen, device="cuda").to(cfg.torch_dtype)
+    w = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
+    V = cfg.vocab_size
+    err = (_unembed(cfg, params, h)[..., :V]
+           - (h.float() @ w.float())[..., :V]).abs().max().item()
+    assert err <= 1e-3, f"unembed differs from the fp32 product by {err:.3e}"
+    m["unembed_device_us"] = sum(device_profile(
+        lambda: _unembed(cfg, params, h), 20)[0].values())
+    m["unembed_fp32_copy_device_us"] = sum(device_profile(
+        lambda: h.float() @ w.float(), 20)[0].values())
+    log(f"  unembed (4,1,{cfg.d_model}) x ({cfg.d_model},{cfg.padded_vocab}): "
+        f"device {m['unembed_device_us']:.2f} us/call; with an fp32 copy of the "
+        f"weight {m['unembed_fp32_copy_device_us']:.2f} us/call; "
+        f"max |diff| {err:.3e} <= 1e-3")
+
+
+def image_ring_bytes(cfg):
+    """What llava's image request holds on the card beyond the weights: its
+    ring of IMAGE_MAX_LEN slots twice (the layers' rings and their stack)."""
+    from repro_torch.configs import alloc_cache
+
+    return 2 * cache_bytes(alloc_cache(cfg, 1, IMAGE_MAX_LEN, torch.device("meta")))
+
+
+def serve_full_width(arch, kv_quant=False, n_layers=None):
+    from repro_torch.agent import TorchLLM
+    from repro_torch.configs import alloc_cache, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import decode_step, prefill_step
+    from repro_torch.serving import ServingEngine
+
+    full = get_config(arch)
+    vlm = full.frontend == "vision_patches"
+    cfg, params, gen, m = load_path(arch, kv_quant, n_layers, extra_bytes=(
+        image_ring_bytes(full) if vlm else 0))
     # warm-up (cuBLAS handles, allocator) on a throw-away engine
     ServingEngine(cfg, params, max_batch=4, max_len=512,
                   device="cuda").generate_text(PROMPTS[0], max_new_tokens=4)
@@ -909,7 +1064,6 @@ def serve_full_width(arch, kv_quant=False, n_layers=None):
         f"mean TTFT {m['mean_ttft_ms']:.2f} ms, decode step (median of "
         f"{len(decode_only)}) {m['decode_step_ms']:.3f} ms; TorchLLM -> {text!r}")
 
-    # where a step's time goes: device time by kernel and the busy share.
     # Attention prompts are padded to a bucket (64 here); rwkv and hymba
     # prompts run at their exact length (48 here, about that of PROMPTS).
     toks = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
@@ -920,58 +1074,142 @@ def serve_full_width(arch, kv_quant=False, n_layers=None):
         prompt = torch.zeros((1, 64), dtype=torch.int32, device="cuda")
         pre_kw = {"true_lens": torch.tensor([60], dtype=torch.int32, device="cuda")}
     tag = arch.split("-")[0] + ("_kvq" if kv_quant else "")
-    for what, fn, table in (
-            ("decode step (B=4)",
-             lambda: decode_step(cfg, params, toks, eng.cache),
-             f"profile_{tag}_decode_step.txt"),
-            (f"prefill (S={prompt.shape[1]})",
-             lambda: prefill_step(cfg, params, {"tokens": prompt}, max_len=512,
-                                  **pre_kw), f"profile_{tag}_prefill.txt")):
-        ops.reset_launch_counts()
-        per_call, busy, wall_us, api_launches = device_profile(
-            fn, PROFILE_ITERS, table)
-        # device_profile calls fn once to warm up, then PROFILE_ITERS times
-        launches = {k: v / (PROFILE_ITERS + 1)
-                    for k, v in ops.launch_counts().items() if v}
-        dev_us = sum(per_call.values())
-        top = sorted(per_call.items(), key=lambda kv: -kv[1])[:6]
-        # each kernel's device time per launch inside the step or prefill
-        in_step = {n: kernel_device_us(per_call, KERNEL_NEEDLES[n]) / c
-                   for n, c in launches.items()}
-        if key_of(what) == "decode" and cfg.family == "moe":
-            log(f"  decode step device {dev_us / 1e3:.3f} ms against the "
-                f"weights-read floor {m['weights_read_floor_ms']:.3f} ms "
-                f"({decode_read_bytes(cfg) / 1e9:.2f} GB at 3.35 TB/s)")
-        log(f"  profile {what}: host wall {wall_us / 1e3:.3f} ms/call, device "
-            f"{dev_us / 1e3:.3f} ms/call, device busy {100 * busy:.1f}%; "
-            f"launch API calls/call {api_launches:.1f}; "
-            f"kernel launches/call {launches}; device us per launch "
-            + ", ".join(f"{n} {t:.2f}" for n, t in in_step.items()) + "; top: "
-            + "; ".join(f"{k[:48]} {t:.1f} us" for k, t in top))
-        key = key_of(what)
-        m[f"{key}_per_launch_us"] = in_step
-        m[f"{key}_wall_ms"] = wall_us / 1e3
-        m[f"{key}_device_ms"] = dev_us / 1e3
-        m[f"{key}_busy"] = busy
-        m[f"{key}_launch_api_calls"] = api_launches
-        m[f"{key}_top_us"] = dict(top)
+    profile_path(cfg, m, tag, (
+        ("decode", "decode step (B=4)",
+         lambda: decode_step(cfg, params, toks, eng.cache), PROFILE_ITERS),
+        ("prefill", f"prefill (S={prompt.shape[1]})",
+         lambda: prefill_step(cfg, params, {"tokens": prompt}, max_len=512,
+                              **pre_kw), PROFILE_ITERS)))
+    check_unembed(cfg, params, gen, m)
+    if vlm:
+        del eng
+        free_card()
+        c = image_request(cfg, params, gen, m)
+        counts = {k: counts[k] + c[k] for k in counts}
+    return counts, m
 
-    # the unembed at a decode step: the bf16 GEMM with fp32 output against
-    # an fp32 copy of the weight (same accumulation, extra traffic)
-    h = torch.randn((4, 1, cfg.d_model), generator=gen, device="cuda").to(cfg.torch_dtype)
-    w = params["embed"].t() if cfg.tie_embeddings else params["unembed"]
-    V = cfg.vocab_size
-    err = (_unembed(cfg, params, h)[..., :V]
-           - (h.float() @ w.float())[..., :V]).abs().max().item()
-    assert err <= 1e-3, f"unembed differs from the fp32 product by {err:.3e}"
-    m["unembed_device_us"] = sum(device_profile(
-        lambda: _unembed(cfg, params, h), 20)[0].values())
-    m["unembed_fp32_copy_device_us"] = sum(device_profile(
-        lambda: h.float() @ w.float(), 20)[0].values())
-    log(f"  unembed (4,1,{cfg.d_model}) x ({cfg.d_model},{cfg.padded_vocab}): "
-        f"device {m['unembed_device_us']:.2f} us/call; with an fp32 copy of the "
-        f"weight {m['unembed_fp32_copy_device_us']:.2f} us/call; "
-        f"max |diff| {err:.3e} <= 1e-3")
+
+def image_request(cfg, params, gen, m):
+    """llava's image request: 2,880 patch embeddings before a 32-token
+    prompt through prefill_step (B 1, a ring of 4,096 slots) and 32 greedy
+    decode_steps, with the dense rule's launch counts; then a profile of
+    the image prefill and of a decode step on its ring."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import decode_step, prefill_step
+    from repro_torch.serving.tokenizer import ByteTokenizer
+
+    free, need = torch.cuda.mem_get_info()[0], image_ring_bytes(cfg)
+    assert need < free, (f"image request needs {need / 2**30:.2f} GiB, "
+                         f"{free / 2**30:.2f} GiB free")
+    P = cfg.n_frontend_tokens
+    ids = ByteTokenizer().encode(PROMPTS[2])[:IMAGE_TEXT]
+    batch = {"tokens": torch.tensor([ids], dtype=torch.int32, device="cuda"),
+             "patches": torch.randn((1, P, cfg.d_model), generator=gen,
+                                    device="cuda").to(cfg.torch_dtype)}
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache, logits = prefill_step(cfg, params, batch, max_len=IMAGE_MAX_LEN)
+    nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    first = int(nxt)
+    ttft = time.perf_counter() - t0
+    out, steps_s = [first], []
+    for _ in range(32):
+        ts = time.perf_counter()
+        logits, cache = decode_step(cfg, params, nxt, cache)
+        nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        out.append(int(nxt))
+        steps_s.append(time.perf_counter() - ts)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    expected = expected_launches(cfg, 1, 32)
+    S = P + len(ids)
+    assert int(cache["pos"][0]) == S + 32, cache["pos"]
+    assert tuple(cache["k"].shape) == (cfg.n_layers, 1, IMAGE_MAX_LEN,
+                                       cfg.n_kv_heads * cfg.head_dim_)
+    assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
+    assert all(0 <= t < cfg.vocab_size for t in out)
+    log(f"  image request: {P} patches + {len(ids)} tokens (S {S}) in a ring "
+        f"of {IMAGE_MAX_LEN}, 32 decode steps: TTFT {1e3 * ttft:.2f} ms, decode "
+        f"step (median) {1e3 * statistics.median(steps_s):.3f} ms, "
+        f"{33 / wall:.1f} tok/s; launches={counts} expected={expected}")
+    assert counts == expected, "image request's launch counts differ"
+    m.update(image_ttft_ms=1e3 * ttft, image_decode_step_ms=1e3 * statistics.median(
+        steps_s), image_tok_s=33 / wall, image_launches=counts, image_s=S)
+    toks = nxt
+    profile_path(cfg, m, "llava", (
+        ("image_prefill", f"image prefill (S={S})",
+         lambda: prefill_step(cfg, params, batch, max_len=IMAGE_MAX_LEN), 3),
+        ("image_decode", f"decode step on the image ring (B=1, C={IMAGE_MAX_LEN})",
+         lambda: decode_step(cfg, params, toks, cache), PROFILE_ITERS)))
+    return counts
+
+
+def serve_encdec(arch):
+    """seamless at full width: 4 requests of 256 frames and a 16-32 token
+    decoder prompt each through ``launch.serve.generate_encdec``
+    (prefill_step with a ring of 512, then 32 greedy decode_steps) with
+    exact launch counts; then profiles of a decode step and a prefill."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate_encdec
+    from repro_torch.models.model import decode_step, prefill_step
+    from repro_torch.serving.tokenizer import ByteTokenizer
+
+    cfg, params, gen, m = load_path(arch)
+    tok = ByteTokenizer()
+    ids = [tok.encode(PROMPTS[i])[:n] for i, n in zip((0, 2, 4, 5),
+                                                      (16, 21, 26, 32))]
+    frames = torch.randn((4, ENC_FRAMES, cfg.d_model), generator=gen,
+                         device="cuda").to(cfg.torch_dtype)
+    generate_encdec(cfg, params, ids, frames, 512, 2)       # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = generate_encdec(cfg, params, ids, frames, 512, 32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    expected = expected_launches(cfg, 1, 32)
+    assert tuple(out.shape) == (4, 33)
+    assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
+    log(f"  4 requests ({[len(i) for i in ids]} tokens, {ENC_FRAMES} frames "
+        f"each) + 32 greedy steps: {4 * 33} tokens in {wall:.3f} s = "
+        f"{4 * 33 / wall:.1f} tok/s; first row -> {tok.decode(out[0].tolist())!r}; "
+        f"launches={counts} expected={expected}")
+    assert counts == expected, "launch counts differ from the main path's"
+
+    S = max(len(i) for i in ids)
+    batch = {"tokens": torch.tensor([i + [0] * (S - len(i)) for i in ids],
+                                    dtype=torch.int32, device="cuda"),
+             "frames": frames}
+    lens = torch.tensor([len(i) for i in ids], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        cache, _ = prefill_step(cfg, params, batch, max_len=512, true_lens=lens)
+        torch.cuda.synchronize()
+        ttft = time.perf_counter() - ts
+        toks = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+        steps_s = []
+        for _ in range(16):
+            ts = time.perf_counter()
+            decode_step(cfg, params, toks, cache)
+            torch.cuda.synchronize()
+            steps_s.append(time.perf_counter() - ts)
+    m.update(tokens=4 * 33, wall_s=wall, tok_s=4 * 33 / wall,
+             mean_ttft_ms=1e3 * ttft, decode_step_ms=1e3 * statistics.median(steps_s),
+             decode_steps_timed=len(steps_s), prefills=1, steps=32,
+             launches=counts, kv_cache_bytes=cache_bytes(cache))
+    log(f"  prefill of the 4 requests {1e3 * ttft:.2f} ms, decode step (median "
+        f"of 16) {m['decode_step_ms']:.3f} ms; cache on the card (ring and "
+        f"cross K/V) {m['kv_cache_bytes'] / 2**20:.3f} MiB")
+    profile_path(cfg, m, "seamless", (
+        ("decode", "decode step (B=4)",
+         lambda: decode_step(cfg, params, toks, cache), PROFILE_ITERS),
+        ("prefill", f"prefill (B=4, {ENC_FRAMES} frames, S={S})",
+         lambda: prefill_step(cfg, params, batch, max_len=512, true_lens=lens),
+         PROFILE_ITERS)))
+    check_unembed(cfg, params, gen, m)
     return counts, m
 
 
@@ -987,20 +1225,23 @@ def tree_to(p, device):
     return p.to(device)
 
 
-def prefill(cfg, params, ids, device):
+def prefill(cfg, params, ids, device, extra=None):
     """Prefill the prompts ``ids`` on ``device``: attention prompts
-    right-padded into one batch with true_lens; rwkv and hymba prompts one
-    by one at their own length, their caches then joined along the batch
-    dimension."""
+    right-padded into one batch with true_lens, beside the batch entries of
+    ``extra`` (frames or patches, moved to ``device``); rwkv and hymba
+    prompts one by one at their own length, their caches then joined along
+    the batch dimension."""
     from repro_torch.models.model import prefill_step
 
     if cfg.family not in ("ssm", "hybrid"):
         S = max(len(i) for i in ids)
-        toks = torch.tensor([i + [0] * (S - len(i)) for i in ids],
-                            dtype=torch.int32, device=device)
+        batch = {k: v.to(device) for k, v in (extra or {}).items()}
+        batch["tokens"] = torch.tensor([i + [0] * (S - len(i)) for i in ids],
+                                       dtype=torch.int32, device=device)
         lens = torch.tensor([len(i) for i in ids], dtype=torch.int32,
                             device=device)
-        return prefill_step(cfg, params, {"tokens": toks}, max_len=64,
+        n_patches = batch["patches"].shape[1] if "patches" in batch else 0
+        return prefill_step(cfg, params, batch, max_len=64 + n_patches,
                             true_lens=lens)
     rows = [prefill_step(cfg, params, {"tokens": torch.tensor(
         [i], dtype=torch.int32, device=device)}, max_len=64) for i in ids]
@@ -1029,8 +1270,16 @@ def cpu_vs_card(arch, tol=1e-3, kv_quant=False):
     cpu_params = tree_to(gpu_params, "cpu")
     tok = ByteTokenizer()
     ids = [tok.encode(p) for p in PROMPTS[:3]]
-    c_cache, c_log = prefill(cfg, cpu_params, ids, "cpu")
-    g_cache, g_log = prefill(cfg, gpu_params, ids, "cuda")
+    # seamless: 64 frames a prompt; llava: 16 patches before each prompt
+    extra = {}
+    if cfg.is_encdec:
+        extra["frames"] = torch.randn((3, 64, cfg.d_model), generator=gen,
+                                      device="cuda").cpu()
+    elif cfg.frontend == "vision_patches":
+        extra["patches"] = torch.randn((3, 16, cfg.d_model), generator=gen,
+                                       device="cuda").cpu()
+    c_cache, c_log = prefill(cfg, cpu_params, ids, "cpu", extra)
+    g_cache, g_log = prefill(cfg, gpu_params, ids, "cuda", extra)
     worst, near_ties = 0.0, 0
     for step in range(9):
         cl, gl = c_log[:, -1], g_log[:, -1].cpu()
@@ -1503,6 +1752,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
@@ -1540,7 +1790,10 @@ def main() -> int:
         name = arch + ("+kv_quant" if kvq else "")
         log(f"phase 3: full-width serving, {name}")
         t3 = time.perf_counter()
-        c, serve[name] = serve_full_width(arch, kv_quant=kvq, n_layers=layers)
+        if get_config(arch).is_encdec:
+            c, serve[name] = serve_encdec(arch)
+        else:
+            c, serve[name] = serve_full_width(arch, kv_quant=kvq, n_layers=layers)
         serve[name]["phase_s"] = time.perf_counter() - t3
         log(f"  {name}: phase 3 took {serve[name]['phase_s']:.1f} s")
         for k, v in c.items():
@@ -1561,7 +1814,8 @@ def main() -> int:
     for arch, kvq in (("dcache-agent-150m", False), ("dcache-agent-150m", True),
                       ("rwkv6-7b", False), ("qwen3-4b", False),
                       ("phi3-mini-3.8b", False), ("qwen1.5-32b", False),
-                      ("mixtral-8x22b", False), ("hymba-1.5b", False)):
+                      ("mixtral-8x22b", False), ("hymba-1.5b", False),
+                      ("seamless-m4t-large-v2", False), ("llava-next-34b", False)):
         name = arch + ("+kv_quant" if kvq else "")
         log(f"phase 4: CPU vs card, fp32, {name}")
         t4 = time.perf_counter()

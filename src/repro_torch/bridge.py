@@ -9,8 +9,11 @@ and likewise ``dec/ssm/*`` (the hybrid family's Mamba heads) and
 stacks its FFNs by kind: with super-layers of k = ``moe.interleave``
 layers, ``dec/moe/*`` has one entry per super-layer s, layer s*k + k-1,
 and ``dec/mlp/*`` one per dense layer, in layer order (JAX regroups it as
-(n_super, k-1)), so dense entry s*(k-1) + j is layer s*k + j.
-bf16 comes across through float32, which is exact in both directions. Any
+(n_super, k-1)), so dense entry s*(k-1) + j is layer s*k + j. The encdec
+family's ``enc/*`` (stacked over its encoder layers, beside
+``enc/final_norm``) becomes ``enc["layers"][l]`` and ``enc["final_norm"]``;
+``dec/cross`` and ``dec/norm3`` go to each decoder layer like ``dec/attn``;
+``frame_proj`` and ``patch_proj`` stay at the top. bf16 comes across through float32, which is exact in both directions. Any
 tree of the params' structure comes across the same way: a gradient tree,
 or with ``dtype=torch.float32`` the fp32 optimizer moments.
 
@@ -42,34 +45,36 @@ def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.tensor(arr).to(dtype=dtype, device=device)
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-
-
 def params_from_numpy(tree: Mapping, cfg: ModelConfig, device=None,
                       dtype: Optional[torch.dtype] = None) -> Dict:
-    """The port's parameters from the JAX tree of a ported family, in
-    ``dtype`` (``cfg``'s model dtype unless given)."""
-    _check_family(cfg)
+    """The port's parameters from the JAX tree, in ``dtype`` (``cfg``'s
+    model dtype unless given)."""
     dev = resolve_device(device)
     dt = cfg.torch_dtype if dtype is None else dtype
     return from_jax_layout(_dict_map(lambda a: _tensor(a, dt, dev), tree), cfg)
 
 
-def to_jax_layout(params: Mapping, cfg: ModelConfig) -> Dict:
-    """A tree of the port's params structure (params, gradients or a
-    moment) in the JAX layout: ``layers`` stacked into ``dec``, each kind
-    of leaf over the layers that have it, in layer order."""
-    _check_family(cfg)
-    layers = params["layers"]
-    out = {k: v for k, v in params.items() if k != "layers"}
+def _stack_layers(layers) -> Dict:
+    """Per-layer dicts stacked along a new leading dim, each kind of leaf
+    over the layers that have it, in layer order."""
     kinds = {k: v for lp in layers for k, v in lp.items()}
-    out["dec"] = {}
+    out = {}
     for k, v in kinds.items():
         have = [lp[k] for lp in layers if k in lp]
-        out["dec"][k] = ({n: torch.stack([t[n] for t in have]) for n in v}
-                         if isinstance(v, dict) else torch.stack(have))
+        out[k] = ({n: torch.stack([t[n] for t in have]) for n in v}
+                  if isinstance(v, dict) else torch.stack(have))
+    return out
+
+
+def to_jax_layout(params: Mapping, cfg: ModelConfig) -> Dict:
+    """A tree of the port's params structure (params, gradients or a
+    moment) in the JAX layout: ``layers`` stacked into ``dec`` and the
+    encoder's layers into ``enc``."""
+    out = {k: v for k, v in params.items() if k not in ("layers", "enc")}
+    out["dec"] = _stack_layers(params["layers"])
+    if "enc" in params:
+        out["enc"] = dict(_stack_layers(params["enc"]["layers"]),
+                          final_norm=params["enc"]["final_norm"])
     return out
 
 
@@ -87,21 +92,33 @@ def _stack_index(cfg: ModelConfig):
                 {"moe": None, "mlp": l - n_moe}
 
 
-def from_jax_layout(tree: Mapping, cfg: ModelConfig) -> Dict:
-    """The inverse of ``to_jax_layout``: ``dec`` split into ``layers``,
-    each a view of the stacked tensors."""
-    _check_family(cfg)
-    dec = tree["dec"]
-    out = {k: v for k, v in tree.items() if k != "dec"}
-    out["layers"] = []
-    for l, own in enumerate(_stack_index(cfg)):
+def _split_layers(stacked: Mapping, owners) -> list:
+    """The inverse of ``_stack_layers``: for each layer's ``own`` (a kind's
+    index into its stack, None where the layer has none, the layer itself
+    where not named), the layer's views of the stacked tensors."""
+    layers = []
+    for l, own in enumerate(owners):
         lp = {}
-        for k, v in dec.items():
+        for k, v in stacked.items():
             i = own.get(k, l)
             if i is not None:
                 lp[k] = ({n: t[i] for n, t in v.items()}
                          if isinstance(v, dict) else v[i])
-        out["layers"].append(lp)
+        layers.append(lp)
+    return layers
+
+
+def from_jax_layout(tree: Mapping, cfg: ModelConfig) -> Dict:
+    """The inverse of ``to_jax_layout``: ``dec`` split into ``layers`` and
+    ``enc`` into its ``layers`` and ``final_norm``, each a view of the
+    stacked tensors."""
+    out = {k: v for k, v in tree.items() if k not in ("dec", "enc")}
+    out["layers"] = _split_layers(tree["dec"], _stack_index(cfg))
+    if "enc" in tree:
+        enc = {k: v for k, v in tree["enc"].items() if k != "final_norm"}
+        out["enc"] = {"layers": _split_layers(
+            enc, [{}] * cfg.n_encoder_layers),
+            "final_norm": tree["enc"]["final_norm"]}
     return out
 
 
@@ -110,7 +127,6 @@ def _param_specs(cfg: ModelConfig) -> Dict:
     ``init_model``, ``init_attention``, ``init_mlp``, ``init_moe``,
     ``init_mamba``, ``init_time_mix`` and ``init_channel_mix`` declare
     them."""
-    _check_family(cfg)
     L, D, V, F = cfg.n_layers, cfg.d_model, cfg.padded_vocab, cfg.d_ff
     LE = ("layers", "embed")
     p = {"embed": ((V, D), ("vocab", "embed")), "final_norm": ((D,), ("embed",))}
@@ -136,17 +152,7 @@ def _param_specs(cfg: ModelConfig) -> Dict:
                      "wv": ((L, F, D), ("layers", "mlp", "embed")),
                      "wr": ((L, D, D), LE + ("act_embed",))}
     else:
-        hq, hd, kv = cfg.n_attn_heads, cfg.head_dim_, cfg.n_kv_heads
-        attn = {"wq": ((L, D, hq * hd), LE + ("heads",)),
-                "wk": ((L, D, kv * hd), LE + ("kv",)),
-                "wv": ((L, D, kv * hd), LE + ("kv",)),
-                "wo": ((L, hq * hd, D), ("layers", "heads", "embed"))}
-        if cfg.qkv_bias:
-            attn["bq"] = ((L, hq * hd), ("layers", "heads"))
-            attn["bk"] = attn["bv"] = ((L, kv * hd), ("layers", "kv"))
-        if cfg.qk_norm:
-            attn["q_norm"] = attn["k_norm"] = ((L, hd), ("layers", ""))
-        dec["attn"] = attn
+        dec["attn"] = _attn_specs(cfg, L)
         if cfg.family == "hybrid":
             H, shd, N = cfg.n_ssm_heads, cfg.ssm.head_dim, cfg.ssm.state_size
             cw = max(cfg.ssm.conv_width, 1)
@@ -162,11 +168,7 @@ def _param_specs(cfg: ModelConfig) -> Dict:
                 "w_out": ((L, H * shd, D), ("layers", "ssm_dim", "embed"))}
         n_moe = L // cfg.moe.interleave if cfg.moe else 0
         if L - n_moe:
-            n = L - n_moe
-            dec["mlp"] = {"w_up": ((n, D, F), LE + ("mlp",)),
-                          "w_down": ((n, F, D), ("layers", "mlp", "embed"))}
-            if cfg.act == "swiglu":
-                dec["mlp"]["w_gate"] = ((n, D, F), LE + ("mlp",))
+            dec["mlp"] = _mlp_specs(cfg, L - n_moe)
         if n_moe:
             E, LX = cfg.moe.n_experts, ("layers", "experts")
             moe = {"router": ((n_moe, D, E), LE + ("experts",)),
@@ -178,8 +180,46 @@ def _param_specs(cfg: ModelConfig) -> Dict:
                 moe["ws_gate"] = moe["ws_up"] = ((n_moe, D, sf), LE + ("mlp",))
                 moe["ws_down"] = ((n_moe, sf, D), ("layers", "mlp", "embed"))
             dec["moe"] = moe
+    if cfg.is_encdec:
+        dec["cross"] = _attn_specs(cfg, L, cross=True)
+        dec["norm3"] = ((L, D), LE)
+        Le = cfg.n_encoder_layers
+        p["enc"] = {"attn": _attn_specs(cfg, Le), "mlp": _mlp_specs(cfg, Le),
+                    "norm1": ((Le, D), LE), "norm2": ((Le, D), LE),
+                    "final_norm": ((D,), ("embed",))}
     p["dec"] = dec
+    if cfg.frontend == "audio_frames":
+        p["frame_proj"] = ((D, D), ("embed", "act_embed"))
+    if cfg.frontend == "vision_patches":
+        p["patch_proj"] = ((D, D), ("embed", "act_embed"))
     return p
+
+
+def _attn_specs(cfg: ModelConfig, n: int, cross: bool = False) -> Dict:
+    """``init_attention``'s leaves over n stacked layers; a ``cross`` layer
+    has no bias or qk_norm."""
+    D, hq, hd, kv = cfg.d_model, cfg.n_attn_heads, cfg.head_dim_, cfg.n_kv_heads
+    LE = ("layers", "embed")
+    attn = {"wq": ((n, D, hq * hd), LE + ("heads",)),
+            "wk": ((n, D, kv * hd), LE + ("kv",)),
+            "wv": ((n, D, kv * hd), LE + ("kv",)),
+            "wo": ((n, hq * hd, D), ("layers", "heads", "embed"))}
+    if cfg.qkv_bias and not cross:
+        attn["bq"] = ((n, hq * hd), ("layers", "heads"))
+        attn["bk"] = attn["bv"] = ((n, kv * hd), ("layers", "kv"))
+    if cfg.qk_norm and not cross:
+        attn["q_norm"] = attn["k_norm"] = ((n, hd), ("layers", ""))
+    return attn
+
+
+def _mlp_specs(cfg: ModelConfig, n: int) -> Dict:
+    """``init_mlp``'s leaves over n stacked layers."""
+    D, F, LE = cfg.d_model, cfg.d_ff, ("layers", "embed")
+    mlp = {"w_up": ((n, D, F), LE + ("mlp",)),
+           "w_down": ((n, F, D), ("layers", "mlp", "embed"))}
+    if cfg.act == "swiglu":
+        mlp["w_gate"] = ((n, D, F), LE + ("mlp",))
+    return mlp
 
 
 def _dict_map(fn, tree: Mapping) -> Dict:

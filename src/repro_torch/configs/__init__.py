@@ -1,7 +1,7 @@
 """Architecture registry: ``get_config("<arch-id>")``.
 
-Only the families ported so far are registered (dense, ssm, moe, hybrid);
-other configs come with their families.
+Every family of the reference is registered: dense, ssm (rwkv6), moe,
+hybrid, encdec (seamless-m4t-large-v2) and vlm (llava-next-34b).
 """
 from __future__ import annotations
 
@@ -15,12 +15,14 @@ _ARCH_MODULES: Dict[str, str] = {
     "dcache-agent-150m": "dcache_agent_150m",
     "granite-3-2b": "granite_3_2b",
     "hymba-1.5b": "hymba_1_5b",
+    "llava-next-34b": "llava_next_34b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "mixtral-8x22b": "mixtral_8x22b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "qwen1.5-32b": "qwen1_5_32b",
     "qwen3-4b": "qwen3_4b",
     "rwkv6-7b": "rwkv6_7b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 ALL_IDS: List[str] = list(_ARCH_MODULES)

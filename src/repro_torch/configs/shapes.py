@@ -1,5 +1,5 @@
-"""Decode-time cache shapes (the dense, moe, hybrid and ssm families of
-``repro.configs.shapes``)."""
+"""Decode-time cache shapes (``repro.configs.shapes.cache_specs`` for every
+family)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -33,11 +33,10 @@ def alloc_cache(cfg: ModelConfig, batch: int, seq_len: int,
     the conv's last inputs ``conv_state`` (L, B, cw-1, H*hd) in the model
     dtype. The ssm family (rwkv6) has the WKV state ``ssm_state`` (L, B, H,
     hd, hd) in fp32 and the token-shift states ``shift_tm``/``shift_cm``
-    (L, B, D) in the model dtype.
+    (L, B, D) in the model dtype. The vlm family has the dense layout; the
+    encdec family adds the cross-attention K/V of the encoder's output,
+    ``cross_k``/``cross_v`` (L, B, seq_len // 2, KV*hd) in the model dtype.
     """
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
-        raise NotImplementedError(
-            f"cache for family {cfg.family!r} is not ported yet")
     L, dt = cfg.n_layers, cfg.torch_dtype
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if cfg.family == "ssm":
@@ -64,4 +63,8 @@ def alloc_cache(cfg: ModelConfig, batch: int, seq_len: int,
         if cw > 1:
             cache["conv_state"] = torch.zeros((L, batch, cw - 1, H * hd),
                                               dtype=dt, device=device)
+    if cfg.is_encdec:
+        shape = (L, batch, seq_len // 2, cfg.n_kv_heads * cfg.head_dim_)
+        cache["cross_k"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["cross_v"] = torch.zeros(shape, dtype=dt, device=device)
     return cache

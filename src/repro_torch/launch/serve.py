@@ -6,14 +6,25 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-32b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-34b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-large-v2 --smoke --device cpu
 
 Serves ``--arch`` (``dcache-agent-150m`` by default; ``rwkv6-7b``: 7.6 B
 parameters, about 15 GB in bf16; the dense ``granite-3-2b``, ``qwen3-4b``,
 ``phi3-mini-3.8b`` and ``qwen1.5-32b``: 35.2 B parameters, 70.4 GB, one
 H100 at full depth; the hybrid ``hymba-1.5b``, 1.2 B parameters; the MoE
 ``mixtral-8x22b`` and ``llama4-maverick-400b-a17b``, 141 B and about 400 B
-parameters, which need several cards at full depth) with random weights
-from a ``torch.Generator`` seeded with 0. On the card the weights' bytes
+parameters, which need several cards at full depth; the vlm
+``llava-next-34b``, 34.4 B parameters, 68.9 GB, one H100, served text
+prompts as the engine serves them, with no image; the encoder-decoder
+``seamless-m4t-large-v2``, 1.6 B parameters) with random weights from a
+``torch.Generator`` seeded with 0. The engine does not take an
+encoder-decoder model (its requests carry no frames): for it the launcher
+runs ``generate_encdec``, the prompts right-padded in one batch beside
+``max_len // 2`` seeded random frame embeddings each (the length the
+cache's ``cross_k`` has), through ``prefill_step`` and greedy
+``decode_step``s. On the card the weights' bytes
 are held against the card's free memory before anything is drawn, and the
 launcher raises, naming both, when they do not fit. ``--smoke`` selects
 the reduced config (vocab 512); its head dim 16 has no kernel instance, so
@@ -30,8 +41,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.bridge import _dict_map, param_shapes
 from repro_torch.configs import ALL_IDS, ModelConfig, get_config
-from repro_torch.models.model import init_model
+from repro_torch.models.model import decode_step, init_model, prefill_step
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.tokenizer import ByteTokenizer
 from repro_torch.training.optimizer import tree_leaves
 
 PROMPTS = [
@@ -63,6 +75,28 @@ def check_fits(cfg: ModelConfig, free_bytes: int) -> None:
             "free")
 
 
+@torch.no_grad()
+def generate_encdec(cfg: ModelConfig, params, ids, frames: torch.Tensor,
+                    max_len: int, steps: int) -> torch.Tensor:
+    """Greedy generation for an encoder-decoder model: the token prompts
+    ``ids`` (lists of ints) right-padded into one batch with their true
+    lengths, beside ``frames`` (B, S_enc, D), through one ``prefill_step``
+    (a ring of ``max_len`` slots) and ``steps`` ``decode_step``s. Returns
+    the (B, steps + 1) generated tokens."""
+    dev = frames.device
+    S = max(len(i) for i in ids)
+    toks = torch.tensor([i + [0] * (S - len(i)) for i in ids],
+                        dtype=torch.int32, device=dev)
+    lens = torch.tensor([len(i) for i in ids], dtype=torch.int32, device=dev)
+    cache, logits = prefill_step(cfg, params, {"tokens": toks, "frames": frames},
+                                 max_len=max_len, true_lens=lens)
+    out = [logits[:, -1].argmax(-1).to(torch.int32)]
+    for _ in range(steps):
+        logits, cache = decode_step(cfg, params, out[-1][:, None], cache)
+        out.append(logits[:, -1].argmax(-1).to(torch.int32))
+    return torch.stack(out, dim=1)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="dcache-agent-150m", choices=ALL_IDS)
@@ -84,6 +118,19 @@ def main(argv=None):
         check_fits(cfg, torch.cuda.mem_get_info(dev)[0])
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_model(cfg, gen, dev)
+    if cfg.is_encdec:
+        tok = ByteTokenizer()
+        ids = [tok.encode(PROMPTS[i % len(PROMPTS)])
+               for i in range(args.requests)]
+        frames = torch.randn((len(ids), args.max_len // 2,
+                              cfg.d_model), generator=gen, device=dev,
+                             dtype=cfg.torch_dtype)
+        out = generate_encdec(cfg, params, ids, frames, args.max_len,
+                              args.max_new - 1)
+        for i, row in zip(ids, out.tolist()):
+            print(f"{tok.decode(i)!r} + {frames.shape[1]} frames -> "
+                  f"{tok.decode(row)!r}")
+        return
     eng = ServingEngine(cfg, params, max_batch=args.max_batch,
                         max_len=args.max_len, device=dev)
     reqs = [eng.submit(PROMPTS[i % len(PROMPTS)], max_new_tokens=args.max_new)

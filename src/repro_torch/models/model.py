@@ -1,5 +1,7 @@
-"""The dense, MoE, hybrid (attention + Mamba heads) and rwkv6 (ssm)
-decoders and their serving steps (``repro.models.model``).
+"""Every family of the reference's decoder and its serving steps
+(``repro.models.model``): dense, MoE, hybrid (attention + Mamba heads),
+rwkv6 (ssm), the encoder-decoder (encdec) and the decoder that takes image
+patches (vlm).
 
 Parameters are a plain dict: ``embed`` (padded_vocab, D), ``final_norm``
 (D,), optionally ``unembed`` (D, padded_vocab), and ``layers``, a list with
@@ -8,8 +10,12 @@ either the dense ``mlp`` or, on a layer of ``cfg.moe_layer_mask()`` (the
 last sublayer of each super-layer of ``moe.interleave`` layers), the
 ``moe`` weights; the hybrid family adds ``ssm`` (Mamba heads) to every
 layer; the ssm family has the ``tm`` (time-mix) and ``cm`` (channel-mix)
-weights instead. A Python loop over ``layers`` takes the place of JAX's
-``lax.scan`` over (super-)layers.
+weights instead. The encdec family adds ``cross`` (cross-attention, no
+bias or qk_norm) and ``norm3`` to every decoder layer, ``enc`` ({"layers":
+[{"attn", "mlp", "norm1", "norm2"}, ...], "final_norm"}) and the frame
+projection ``frame_proj`` (D, D); the vlm family adds ``patch_proj`` (D,
+D). A Python loop over ``layers`` takes the place of JAX's ``lax.scan``
+over (super-)layers.
 
     init_model(cfg, generator, device)          -> params
     forward(cfg, params, batch)                 -> final hidden states
@@ -17,12 +23,20 @@ weights instead. A Python loop over ``layers`` takes the place of JAX's
     prefill_step(cfg, params, batch, ...)       -> (cache, last-token logits)
     decode_step(cfg, params, tokens, cache)     -> (logits, cache)
 
+A batch holds ``tokens`` (B,S) int and, for encdec, ``frames`` (B,S_enc,D)
+(the audio frontend's stub), or for vlm optionally ``patches`` (B,P,D)
+(the vision frontend's stub), which are projected and put before the text
+tokens. Frames and patches are cast to the model dtype first; the
+reference promotes fp32 patches' whole stream, ring included, to fp32 and
+raises on fp32 frames in a bf16 model.
+
 ``forward(..., is_train=True)`` (what ``loss_fn`` runs) is the training
 route: every norm, attention and WKV call takes its differentiable torch
-ops, the counterpart of JAX's XLA path, each layer is rematerialised under
-``cfg.remat == "block"``, and each MoE layer adds its load-balancing loss
-to the auxiliary loss. The serving steps pass ``is_train=False`` and reach
-the kernels.
+ops, the counterpart of JAX's XLA path, each decoder layer is
+rematerialised under ``cfg.remat == "block"`` (the encoder's are not, as
+in the reference), and each MoE layer adds its load-balancing loss to the
+auxiliary loss. The serving steps pass ``is_train=False`` and reach the
+kernels.
 """
 from __future__ import annotations
 
@@ -40,19 +54,9 @@ from repro_torch.models import mamba, mlp_moe, rwkv
 from repro_torch.models.common import grad_cast, init_param, rms_norm
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm") \
-            or cfg.frontend != "none" or cfg.is_encdec:
-        raise NotImplementedError(
-            f"family {cfg.family!r} (frontend {cfg.frontend!r}, "
-            f"{cfg.n_encoder_layers} encoder layers) is not ported yet; the "
-            "dense, moe, hybrid and rwkv6 (ssm) decoders are")
-
-
 def init_model(cfg: ModelConfig, generator: torch.Generator,
                device=None) -> Dict:
     """Random weights from ``generator``, on ``device`` (cuda by default)."""
-    _check_family(cfg)
     dev = resolve_device(device)
     D, dt = cfg.d_model, cfg.torch_dtype
     p: Dict = {
@@ -76,13 +80,55 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
                 lp["moe"] = mlp_moe.init_moe(cfg, generator, dev)
             else:
                 lp["mlp"] = mlp_moe.init_mlp(cfg, generator, dev)
+        if cfg.is_encdec:
+            lp["cross"] = attn_mod.init_attention(cfg, generator, dev,
+                                                  cross=True)
+            lp["norm3"] = torch.ones((D,), dtype=dt, device=dev)
         layers.append(lp)
     p["layers"] = layers
+    if cfg.is_encdec:
+        p["enc"] = {"layers": [
+            {"attn": attn_mod.init_attention(cfg, generator, dev),
+             "mlp": mlp_moe.init_mlp(cfg, generator, dev),
+             "norm1": torch.ones((D,), dtype=dt, device=dev),
+             "norm2": torch.ones((D,), dtype=dt, device=dev)}
+            for _ in range(cfg.n_encoder_layers)],
+            "final_norm": torch.ones((D,), dtype=dt, device=dev)}
+    if cfg.frontend == "audio_frames":
+        p["frame_proj"] = init_param((D, D), generator, dt, dev)
+    if cfg.frontend == "vision_patches":
+        p["patch_proj"] = init_param((D, D), generator, dt, dev)
     return p
 
 
+def _n_patches(cfg: ModelConfig, batch: Dict) -> int:
+    """The image patches put before the text tokens (0 without any)."""
+    if cfg.frontend == "vision_patches" and "patches" in batch:
+        return batch["patches"].shape[1]
+    return 0
+
+
 def _embed_tokens(cfg: ModelConfig, p: Dict, batch: Dict) -> torch.Tensor:
-    return p["embed"][batch["tokens"].long()]
+    x = p["embed"][batch["tokens"].long()]
+    if _n_patches(cfg, batch):
+        vis = batch["patches"].to(x.dtype) @ p["patch_proj"]
+        x = torch.cat([vis, x], dim=1)
+    return x
+
+
+def _encoder(cfg: ModelConfig, p: Dict, frames: torch.Tensor, *,
+             is_train: bool) -> torch.Tensor:
+    """The encoder over the projected frames: unmasked, roped
+    self-attention and the FFN in every layer, then its final norm."""
+    enc = p["enc"]
+    x = frames.to(p["frame_proj"].dtype) @ p["frame_proj"]
+    for lp in enc["layers"]:
+        a_in = rms_norm(x, lp["norm1"], cfg.norm_eps, is_train=is_train)
+        x = x + attn_mod.attend(lp["attn"], cfg, a_in, causal=False,
+                                is_train=is_train)
+        f_in = rms_norm(x, lp["norm2"], cfg.norm_eps, is_train=is_train)
+        x = x + mlp_moe.mlp(lp["mlp"], cfg, f_in)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps, is_train=is_train)
 
 
 def _unembed(cfg: ModelConfig, p: Dict, h: torch.Tensor) -> torch.Tensor:
@@ -128,13 +174,15 @@ def _ffn(cfg: ModelConfig, lp: Dict, x: torch.Tensor, is_train: bool):
     return mlp_moe.mlp(lp["mlp"], cfg, x), None
 
 
-def _attn_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, *,
-                is_train: bool, collect_cache: bool, cache_len: int):
+def _attn_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
+                memory: Optional[torch.Tensor] = None, *, is_train: bool,
+                collect_cache: bool, cache_len: int):
     """One layer of an attention family over a whole sequence: attention
     (with the hybrid family's SSM heads beside it on the same normed input,
-    their outputs summed), then the dense or MoE FFN. Returns (x, the
-    layer's aux loss or None, its cache leaves, empty without
-    ``collect_cache``)."""
+    their outputs summed), for encdec then cross-attention on the encoder's
+    output ``memory``, then the dense or MoE FFN. Returns (x, the layer's
+    aux loss or None, its cache leaves, empty without ``collect_cache``;
+    encdec adds the cross K/V ``cross_k``/``cross_v`` (B,S_enc,KV*hd))."""
     a_in = rms_norm(x, lp["norm1"], cfg.norm_eps, is_train=is_train)
     y = {}
     if collect_cache:
@@ -158,6 +206,14 @@ def _attn_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor, *,
             if conv is not None:
                 y["conv_state"] = conv
     x = x + a_out
+    if "cross" in lp:
+        c_in = rms_norm(x, lp["norm3"], cfg.norm_eps, is_train=is_train)
+        c_out = attn_mod.attend(lp["cross"], cfg, c_in, causal=False,
+                                kv_x=memory, use_rope=False,
+                                return_kv=collect_cache, is_train=is_train)
+        if collect_cache:
+            c_out, (y["cross_k"], y["cross_v"]) = c_out
+        x = x + c_out
     f_in = rms_norm(x, lp["norm2"], cfg.norm_eps, is_train=is_train)
     f_out, aux = _ffn(cfg, lp, f_in, is_train)
     return x + f_out, aux, y
@@ -179,7 +235,8 @@ def _stack(cfg: ModelConfig, params: Dict, batch: Dict, *, is_train: bool,
            collect_cache: bool, cache_len: int):
     """(final hidden states, aux loss (fp32 scalar), cache or None): JAX's
     ``forward``."""
-    _check_family(cfg)
+    memory = (_encoder(cfg, params, batch["frames"], is_train=is_train)
+              if cfg.is_encdec else None)
     x = _embed_tokens(cfg, params, batch)
     if cfg.family == "ssm":
         layer = functools.partial(_rwkv_layer, cfg, is_train=is_train)
@@ -192,7 +249,7 @@ def _stack(cfg: ModelConfig, params: Dict, batch: Dict, *, is_train: bool,
     leaves = {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
-        x, a, y = layer(lp, x)
+        x, a, y = layer(lp, x) if memory is None else layer(lp, x, memory)
         if a is not None:
             aux = aux + a
         for k, t in y.items():
@@ -206,14 +263,17 @@ def _stack(cfg: ModelConfig, params: Dict, batch: Dict, *, is_train: bool,
 def forward(cfg: ModelConfig, params: Dict, batch: Dict, *,
             is_train: bool = True, collect_cache: bool = False,
             cache_len: int = 0):
-    """Final hidden states (B,S,D) and, with ``collect_cache``, the
+    """Final hidden states (B,S,D) (S counts the patches before the text
+    for vlm; the decoder's tokens only for encdec) and, with
+    ``collect_cache``, the
     layer-stacked cache: the ring buffers {"k", "v"} of
     (L,B,cache_len,KV*hd) for the attention families (with ``cfg.kv_quant``
     int8 codes and {"k_scale", "v_scale"} (L,B,cache_len,KV); attention
     itself runs on the unquantized K/V, as in JAX), for hybrid also the SSM
     state {"ssm_state" (L,B,H,hd,N) fp32, "conv_state" (L,B,cw-1,H*hd)};
     the recurrent state {"ssm_state" (L,B,H,hd,hd) fp32, "shift_tm",
-    "shift_cm" (L,B,D)} for ssm. As in JAX, ``is_train`` is the default:
+    "shift_cm" (L,B,D)} for ssm; encdec adds the cross K/V {"cross_k",
+    "cross_v"} (L,B,S_enc,KV*hd). As in JAX, ``is_train`` is the default:
     the training route (module docstring); the serving steps pass
     ``is_train=False``. ``loss_fn`` also takes the MoE aux loss."""
     h, _, cache = _stack(cfg, params, batch, is_train=is_train,
@@ -253,9 +313,11 @@ def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict,
             aux_weight: float = 0.01):
     """(total, {"loss", "aux_loss", "accuracy"}) on the training route;
     total = loss + aux_weight * aux, where aux sums the MoE layers'
-    load-balancing losses (0 for the other families)."""
+    load-balancing losses (0 for the other families). The patch positions
+    of a vlm batch carry no target and are dropped first."""
     h, aux, _ = _stack(cfg, params, batch, is_train=True, collect_cache=False,
                        cache_len=0)
+    h = h[:, _n_patches(cfg, batch):]
     # keep the backward residual stream in the model dtype
     loss, acc = chunked_xent(cfg, params, grad_cast(h, cfg.torch_dtype),
                              batch["targets"])
@@ -268,25 +330,40 @@ def prefill_step(cfg: ModelConfig, params: Dict, batch: Dict,
                  true_lens: Optional[torch.Tensor] = None):
     """Run the prompt, return (cache, last-token logits (B,1,V) fp32).
 
+    The ring holds ``max_len`` slots (bounded by a window or chunk), or
+    without ``max_len`` the prompt's length, counting the frames (encdec)
+    or the patches (vlm) too, as the reference counts them. ``pos`` counts
+    the decoder's tokens: for encdec the text tokens only, for vlm the
+    patches and the text.
+
     ``true_lens`` (B,) supports right-padded prompts: logits are taken at
-    each row's true last token and decoding starts there; the padded ring
-    slots are masked at decode because their slot position exceeds pos,
-    as long as the padded length fits the ring (the engine prefills longer
-    buckets at their exact length). The recurrent (ssm, hybrid) state has
-    no such mask: its prompts must not be padded. A MoE layer routes pad
-    tokens too, and they take expert capacity, as in JAX."""
-    B, S = batch["tokens"].shape
+    each row's true last token (after the patches for vlm) and decoding
+    starts there; the padded ring slots are masked at decode because their
+    slot position exceeds pos, as long as the padded length fits the ring
+    (the engine prefills longer buckets at their exact length). The
+    recurrent (ssm, hybrid) state has no such mask: its prompts must not be
+    padded. A MoE layer routes pad tokens too, and they take expert
+    capacity, as in JAX.
+
+    One deviation from the reference, a repair: with patches and
+    ``true_lens``, ``pos`` is true_lens + the patch count. The reference
+    sets it to true_lens (``repro/models/model.py:368``), so its next decode
+    step would rope the token at the text's length and write it over a
+    patch's ring slot. No reference caller passes both."""
+    T = batch["tokens"].shape[1]
+    n_front = _n_patches(cfg, batch)
+    S = T + (batch["frames"].shape[1] if cfg.is_encdec else n_front)
     C = effective_cache_len(cfg, max_len or S)
     h, cache = forward(cfg, params, batch, is_train=False, collect_cache=True,
                        cache_len=C)
-    dev = h.device
+    B, dev = h.shape[0], h.device
     if true_lens is None:
-        pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+        pos = torch.full((B,), h.shape[1], dtype=torch.int32, device=dev)
         logits = _unembed(cfg, params, h[:, -1:, :])
     else:
         true_lens = true_lens.to(dev)
-        pos = true_lens.to(torch.int32)
-        idx = torch.clamp(true_lens.long() - 1, 0, S - 1)
+        pos = (true_lens + n_front).to(torch.int32)
+        idx = torch.clamp(true_lens.long() - 1 + n_front, 0, h.shape[1] - 1)
         logits = _unembed(cfg, params,
                           h[torch.arange(B, device=dev), idx][:, None, :])
     cache["pos"] = pos
@@ -317,14 +394,16 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 
     The cache's buffers (K/V and, with kv_quant, their scales; the hybrid
     family's SSM and conv states; or the recurrent state and token shifts)
-    are updated IN PLACE (the JAX version returns a new cache); ``pos`` is
-    replaced by pos + 1. Returns (logits, cache)."""
-    _check_family(cfg)
+    are updated IN PLACE (the JAX version returns a new cache); encdec's
+    cross K/V are only read. ``pos`` is replaced by pos + 1. Returns
+    (logits, cache)."""
     x = params["embed"][tokens.long()]
     pos = cache["pos"]
     if cfg.family == "ssm":
         x = _rwkv_decode(cfg, params, x, cache)
     else:
+        if cfg.is_encdec:     # the last of the encoder's slots
+            enc_pos = torch.full_like(pos, cache["cross_k"].shape[2] - 1)
         for l, lp in enumerate(params["layers"]):
             a_in = rms_norm(x, lp["norm1"], cfg.norm_eps)
             scales = ((cache["k_scale"][l], cache["v_scale"][l])
@@ -341,6 +420,11 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                     conv.copy_(c2)
                 a_out = a_out + m_out
             x = x + a_out
+            if "cross" in lp:
+                c_in = rms_norm(x, lp["norm3"], cfg.norm_eps)
+                x = x + attn_mod.cross_decode_attend(
+                    lp["cross"], cfg, c_in, cache["cross_k"][l],
+                    cache["cross_v"][l], enc_pos)
             f_in = rms_norm(x, lp["norm2"], cfg.norm_eps)
             x = x + _ffn(cfg, lp, f_in, is_train=False)[0]
     cache["pos"] = pos + 1

@@ -10,6 +10,13 @@ pass through the recurrent state and the token shift. Completed rows free
 their slot. Prefill and decode run under ``torch.no_grad()``, so trained
 params that still require grad build no graph.
 
+The engine serves text prompts. A vlm model serves them as the dense
+decoder, with no patches, as the reference engine does. An encdec model
+needs the encoder's frames at every prefill, which no request carries: the
+engine refuses it at construction, and ``prefill_step``/``decode_step``
+with ``frames`` are its entry points (the reference engine passes only
+``tokens`` and fails at the first admission with ``KeyError: 'frames'``).
+
 Two deviations from the reference engine, both repairs:
 
 - A prompt whose bucket is longer than the ring (``effective_cache_len``,
@@ -68,6 +75,12 @@ class ServingEngine:
                  device=None):
         if cfg.vocab_size < MIN_VOCAB:
             raise ValueError("byte tokenizer needs vocab >= 258")
+        if cfg.is_encdec:
+            raise ValueError(
+                f"{cfg.name}: an encoder-decoder model needs the encoder's "
+                "frames at every prefill, and requests carry only text; "
+                "serve it through repro_torch.models.model.prefill_step "
+                "(batch with 'tokens' and 'frames') and decode_step")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params on {params['embed'].device}, engine on "

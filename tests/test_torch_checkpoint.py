@@ -302,6 +302,11 @@ def data_iter():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_jax_train_loop_checkpoint_restores_in_port(arch, tmp_path):
+    jax_checkpoint_restores_in_port(arch, tmp_path)
+
+
+def jax_checkpoint_restores_in_port(arch, tmp_path):
+    """A checkpoint of JAX's TrainLoop restored by the port's, bit for bit."""
     jcfg, tcfg, jstate, _ = loop_state(arch)
     jloop = jtrain.TrainLoop(jcfg, jopt.AdamWConfig(), jstate["params"],
                              data_iter(),
@@ -318,6 +323,12 @@ def test_jax_train_loop_checkpoint_restores_in_port(arch, tmp_path):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_port_train_loop_checkpoint_restores_in_jax(arch, tmp_path, monkeypatch):
+    port_checkpoint_restores_in_jax(arch, tmp_path, monkeypatch)
+
+
+def port_checkpoint_restores_in_jax(arch, tmp_path, monkeypatch):
+    """A zlib checkpoint of the port's TrainLoop: its bytes equal to JAX's
+    records, restored by JAX's TrainLoop bit for bit."""
     monkeypatch.setattr(tckpt, "zstandard", None)     # the card's machine
     jcfg, tcfg, jstate, tstate = loop_state(arch)
     tloop = TrainLoop(tcfg, AdamWConfig(), tstate["params"], data_iter(),

@@ -20,6 +20,8 @@ from repro.models import Init, init_model as jax_init_model, unbox
 from repro.models import model as jmodel
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import single_device
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model as tmodel
 
 F32 = dict(atol=1e-4, rtol=1e-4)
@@ -145,12 +147,16 @@ def test_bf16_prefill_and_decode_close_to_jax():
 
 
 def test_unported_features_raise():
-    _, tcfg = configs()
-    gen = torch.Generator().manual_seed(0)
-    for kw in (dict(frontend="vision_patches"), dict(n_encoder_layers=2),
-               dict(frontend="audio_frames")):
-        with pytest.raises(NotImplementedError):
-            tmodel.init_model(dataclasses.replace(tcfg, **kw), gen, "cpu")
+    """What is still unported raises: remat="dots" on the training route,
+    and placing onto a mesh of more than one device."""
+    _, tcfg = configs(remat="dots")
+    p = tmodel.init_model(tcfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(tokens(tcfg, 1, 9))
+    with pytest.raises(NotImplementedError, match="dots"):
+        tmodel.loss_fn(tcfg, p, {"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+    for multi_pod in (False, True):
+        with pytest.raises(NotImplementedError, match="one device"):
+            single_device(make_production_mesh(multi_pod=multi_pod))
 
 
 def test_kv_quant_builds():

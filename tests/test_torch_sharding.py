@@ -172,6 +172,12 @@ def test_param_shapes_equal_the_port_init(arch):
 @pytest.mark.parametrize("mesh", [MESH1, MESH2], ids=["16x16", "2x16x16"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_every_leaf_spec_equals_jax(arch, mesh, table):
+    assert_every_leaf_spec_equals_jax(arch, mesh, table)
+
+
+def assert_every_leaf_spec_equals_jax(arch, mesh, table):
+    """Every leaf of the full-width ``arch``: the port's spec on ``mesh``
+    under rule table ``table`` equals JAX's."""
     jcfg, tcfg = jax_get_config(arch), get_config(arch)
     shapes, axes = jax_abstract(jcfg)
     shardings = tree_shardings(param_axes(tcfg), param_shapes(tcfg), mesh,
