@@ -6,7 +6,9 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels from src/repro_torch/kernels/csrc/ and print the
      build time and each kernel's ptxas registers, shared memory and spills
-     (any spill fails the run);
+     (any spill fails the run), and the 12 attention instances at head dims
+     16 and 32 (flash mma and fma, decode and int8 decode in bf16 and fp32)
+     by name;
   2. hold each kernel against its plain PyTorch version on the card, in bf16
      (atol = rtol = 2e-2) and fp32 (1e-4, sums in another order), at the main
      paths' shapes and ragged ones: flash and decode at every served
@@ -30,14 +32,18 @@ Phases (any failure exits non-zero; nothing is caught):
      2,912) and at S 2,917, both ragged; prompts of S 32 (seamless's padded
      decoder prompt) and decode rings of 256 slots (seamless's
      cross-attention: the encoder's K/V of a cache layer, pos = C - 1) at
-     every served head shape. A misaligned view of an attention (bf16 or int8)
+     every served head shape; flash and decode at head dims 16 and 32
+     (SMALL_HEADS: G 1, 2 and 4, every mask, ragged S and C) and the int8
+     kernel there at G 4, 2, 1 and 16. A misaligned view of an attention (bf16 or int8)
      or WKV input must raise and launch nothing. Time kernel, plain version and the library call
      (CUDA events, median of 50) at each served path's shapes (dcache,
      qwen3-4b, phi3-mini-3.8b, qwen1.5-32b's decode, mixtral's G 6,
      llama4's G 5 and llava's G 7 at d 128, seamless's MHA at d 64),
      prefill also at S = 512, llava's image prefill, seamless's encoder
-     unmasked at its 256 frames, its cross-attention decode at C 256, and
-     an empty kernel (the launch floor);
+     unmasked at its 256 frames, its cross-attention decode at C 256, the
+     three attention kernels at head dims 16 and 32 at the reduced
+     dcache's heads and the serving bench's shapes, and an empty kernel
+     (the launch floor);
   3. serve twelve paths at full width in bf16, each with random weights from
      a seeded torch.Generator, through ServingEngine(max_batch=4,
      max_len=512) (8 prompts x 32 new tokens) and then one
@@ -76,6 +82,21 @@ Phases (any failure exits non-zero; nothing is caught):
      pages and copy the tail, and paged_decode_attention (the decode kernel
      on the gathered view) must equal its plain version, with exact launch
      counts;
+  assigned shapes: full-width dcache-agent-150m in bf16 at decode_32k (B
+     128 over a ring of 32,768 slots drawn whole from a seeded generator, 3
+     warm-up and 10 timed decode_steps, a profiled one; the step against
+     analytic_hbm_bytes / 3.35 TB/s; layer 0's decode attention at this size
+     against its plain version) and prefill_32k (B 32 x S 32,768 through
+     prefill_step, the batch cut if its working set would not fit; flash's
+     share of the profiled device time; one layer's flash against SDPA's
+     time, one (row, head) of it against the plain version of that head);
+     both holds absolute and, output row by output row, relative to the
+     row's own rms (a long softmax's outputs are below the absolute
+     tolerance); train_4k is not run and long_500k's skip text is logged;
+  bench: repro_torch.launch.serving_bench's run_bench at its reference
+     configuration (head dim 16) with its rows and exact launch counts, phase
+     3's dcache workload 5 times in this process after a warm-up (median,
+     min and max of tok/s, mean TTFT and decode step), bench_kernels' row;
   4. for the first three paths, qwen3-4b, phi3-mini-3.8b, qwen1.5-32b,
      mixtral-8x22b (MoE, G 6), hymba-1.5b (attention and Mamba heads),
      seamless-m4t-large-v2 (64 frames a prompt) and llava-next-34b (16
@@ -90,12 +111,19 @@ Phases (any failure exits non-zero; nothing is caught):
      would enter the recurrent state. llama4-maverick is left out: one
      super-layer at full width is 74 GB of fp32 weights on the host; its
      heads are held in phase 2 and its numerics against JAX on the CPU
-     (tests/test_torch_moe.py);
+     (tests/test_torch_moe.py). Then the reduced configs (head dim 16,
+     vocab 512) of dcache-agent-150m, mixtral-8x22b, hymba-1.5b,
+     seamless-m4t-large-v2 and llava-next-34b the same way (a prompt longer
+     than a window's ring prefilled at its own length), and
+     launch.serve's and launch.serve_llm's --smoke mains on the card,
+     held to the launch counts of the engines they return;
   5. training (freeing the card before and after): full-width
      dcache-agent-150m in bf16 through the twin's own train() of
      repro_torch.launch.serve_llm, 30 AdamW steps at 8 x 512 tokens; every
      loss and grad_norm finite, the loss down by at least 0.5 (mean of the
      last 5 against the first 5), no kernel launched in training, the
+     same 30 steps with remat="dots" beside them (step ms, peak memory,
+     every loss within 1e-3 relative), the
      params bf16 without grad after it; those params then serve the twin's 8
      prompts through its serve() with the launch counts of phase 3's rule,
      and one TorchLLM decision. Reports the median step, tokens/s, peak
@@ -187,14 +215,16 @@ LAUNCH_APIS = ("cudaLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC",
                "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
-def device_profile(fn, iters, table_file=None):
-    """torch.profiler over ``iters`` calls of fn: device time per call by
-    kernel name (us), the device-busy share of the host wall time, the host
-    wall time per call (us) and the launch API calls per call."""
+def device_profile(fn, iters, table_file=None, warmup=True):
+    """torch.profiler over ``iters`` calls of fn (after one more unless
+    ``warmup`` is False): device time per call by kernel name (us), the
+    device-busy share of the host wall time, the host wall time per call
+    (us) and the launch API calls per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -250,6 +280,26 @@ def compare(name, case, out, gold, dtype, errs):
     by[str(dtype)[6:]] = max(by.get(str(dtype)[6:], 0.0), err)
 
 
+def compare_rows(name, case, out, gold, dtype):
+    """Each output row's (last dimension's) rms error against that row's own
+    rms, held at TOL[dtype]. A softmax spread over n slots gives outputs of
+    about 1/sqrt(n), below TOL itself at a 32,768-slot ring, so there the
+    absolute hold of ``compare`` cannot see a dropped split or key tile;
+    this one can. Returns the per-row ratios."""
+    o, g = out.float().flatten(0, -2), gold.float().flatten(0, -2)
+    ratio = ((o - g).pow(2).mean(-1).sqrt()
+             / g.pow(2).mean(-1).sqrt().clamp_min(1e-30))
+    worst, tol = ratio.max().item(), TOL[dtype]
+    ok = worst <= tol
+    log(f"  {name} {case} {str(dtype)[6:]}: max over {ratio.numel()} rows of "
+        f"rms(err)/rms(row)={worst:.3e} (median {ratio.median().item():.3e}) "
+        f"tol={tol:g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {case}: kernel disagrees with plain "
+                             "version relative to the rows' size")
+    return ratio
+
+
 def randn(gen, *shape, dtype):
     return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
@@ -267,6 +317,9 @@ SERVED_PATHS = (("dcache-agent-150m", False, None), ("dcache-agent-150m", True, 
                 ("llama4-maverick-400b-a17b", False, 4), ("hymba-1.5b", False, None),
                 ("seamless-m4t-large-v2", False, None),
                 ("llava-next-34b", False, None))
+# head dims 16 and 32 (16 is every reduced config's: the smoke launchers and
+# the serving bench) at the reduced configs' groups, G 1, 2 and 4
+SMALL_HEADS = [(d, Hq, Hkv) for d in (16, 32) for Hq, Hkv in ((4, 4), (4, 2), (8, 2))]
 # llava's image request: 2,880 patches (anyres, 5 tiles x 576) before a
 # 32-token prompt, in a ring of 4,096 slots; seamless's requests: 256
 # frames each (cross_k of cache_specs' max_len // 2 at max_len 512)
@@ -282,6 +335,23 @@ def served_shapes():
     heads = {(c.head_dim_, c.n_attn_heads, c.n_kv_heads)
              for c in cfgs if not c.attn_free}
     return sorted({c.d_model for c in cfgs}), sorted(heads)
+
+
+def small_dim_instances(ptxas):
+    """(kernel<type, d>, registers, spill line) of every attention instance
+    at head dim 16 or 32 in the ptxas log: flash's mma and fma kernels and
+    the decode and int8 decode kernels in bf16 and fp32."""
+    out, lines = [], ptxas.splitlines()
+    for i, line in enumerate(lines):
+        hit = re.search(r"(flash_kernel_mma|flash_kernel_fma|decode_kernel|"
+                        r"decode_int8_kernel)I(13__nv_bfloat16|f)?Li(16|32)E", line)
+        if "entry function" in line and hit:
+            regs = next(re.search(r"Used (\d+) registers", x).group(1)
+                        for x in lines[i + 1:i + 4] if "Used" in x)
+            spill = next(x.strip() for x in lines[i + 1:i + 4] if "spill" in x)
+            dt = {"13__nv_bfloat16": "bf16", "f": "fp32", None: ""}[hit.group(2)]
+            out.append((f"{hit.group(3)} {hit.group(1)} {dt}".strip(), int(regs), spill))
+    return out
 
 
 def check_kernels(errs):
@@ -315,7 +385,7 @@ def check_kernels(errs):
         # each served path's head dim and heads (the grid follows Hkv, so
         # every (d, Hq, Hkv) is its own case), and d 96 at G = 4, which no
         # path serves
-        for d, Hq, Hkv in heads + [(96, 16, 4)]:
+        for d, Hq, Hkv in heads + [(96, 16, 4)] + SMALL_HEADS:
             check_attention(gen, dtype, d, Hq, Hkv, errs)
         check_image_prefill(gen, dtype, errs)
         check_group16(gen, dtype, errs)
@@ -463,7 +533,9 @@ def check_int8(gen, dtype, d, errs):
                 decode_attention_int8_plain(q, k, v, ks, vs, p, **kw), dtype, errs)
 
     B = 4
-    groups = ((12, 4), (16, 1)) if d == 64 else ((16, 4), (8, 8), (16, 1))
+    groups = {64: ((12, 4), (16, 1)), 16: ((16, 4), (8, 4), (8, 8), (16, 1)),
+              32: ((16, 4), (8, 4), (8, 8), (16, 1))}.get(
+                  d, ((16, 4), (8, 8), (16, 1)))
     for C in (64, 100, 512):
         for Hq, Hkv in groups:
             _, _, k, ks = int8_ring(gen, B, C, Hkv, d, dtype)
@@ -767,6 +839,14 @@ def time_kernels():
         gen, 56, 8, 2880 + IMAGE_TEXT, 128)
     rows["flash_attention_seamless_encoder"] = time_flash(
         gen, 16, 16, ENC_FRAMES, 64, causal=False)
+    # head dims 16 and 32 at the reduced dcache-agent-150m's heads (4 q over
+    # 2 KV) and the serving bench's shapes (max_batch 4, max_len 128):
+    # a prompt bucket of 32, a ring of 128 slots
+    for d in (16, 32):
+        rows[f"flash_attention_d{d}"] = time_flash(gen, 4, 2, 32, d)
+        rows[f"decode_attention_d{d}"] = time_decode(gen, 4, 4, 2, 128, d)
+        rows[f"decode_attention_int8_d{d}"] = time_decode(gen, 4, 4, 2, 128, d,
+                                                          int8=True)
 
     # rmsnorm at the rwkv6-7b decode step's shapes: norm1/norm2 (4,1,4096)
     # and the per-head ln_x norm, 4*64 rows of 64
@@ -1002,6 +1082,29 @@ def image_ring_bytes(cfg):
     return 2 * cache_bytes(alloc_cache(cfg, 1, IMAGE_MAX_LEN, torch.device("meta")))
 
 
+def serve_workload(eng, n_new=32):
+    """Phase 3's workload on ``eng``: the 8 PROMPTS of ``n_new`` tokens
+    each, served to completion. Returns the generated tokens, the wall
+    time, tokens/s, the mean TTFT and the median decode-only step (host
+    clock; a step ends when its sampled tokens reach the host)."""
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=n_new) for p in PROMPTS]
+    decode_only = []
+    while eng.waiting or any(s is not None for s in eng.slots):
+        n_pre = eng.prefills
+        ts = time.perf_counter()
+        eng.step()
+        if eng.prefills == n_pre:
+            decode_only.append(time.perf_counter() - ts)
+    wall = time.perf_counter() - t0
+    assert all(r.done and 1 <= len(r.out_ids) <= n_new for r in reqs), "unfinished"
+    n = sum(len(r.out_ids) for r in reqs)
+    ttft = statistics.fmean(r.first_token_at - r.submitted_at for r in reqs)
+    return dict(tokens=n, wall_s=wall, tok_s=n / wall, mean_ttft_ms=1e3 * ttft,
+                decode_step_ms=1e3 * statistics.median(decode_only),
+                decode_steps_timed=len(decode_only))
+
+
 def serve_full_width(arch, kv_quant=False, n_layers=None):
     from repro_torch.agent import TorchLLM
     from repro_torch.configs import alloc_cache, get_config
@@ -1031,38 +1134,23 @@ def serve_full_width(arch, kv_quant=False, n_layers=None):
         if kv_quant:
             assert eng.cache["k"].dtype == torch.int8 and "k_scale" in eng.cache
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    reqs = [eng.submit(p, max_new_tokens=32) for p in PROMPTS]
-    decode_only = []
-    while eng.waiting or any(s is not None for s in eng.slots):
-        n_pre = eng.prefills
-        ts = time.perf_counter()
-        eng.step()
-        if eng.prefills == n_pre:
-            decode_only.append(time.perf_counter() - ts)
-    wall = time.perf_counter() - t0
-    stats = eng.stats()
+    w = serve_workload(eng)
     text = TorchLLM(eng, max_new_tokens=32).complete(PROMPTS[1])
     torch.cuda.synchronize()
     counts = ops.launch_counts()
 
-    assert all(r.done for r in reqs) and eng.finished[-1].done, "unfinished"
-    assert all(1 <= len(r.out_ids) <= 32 for r in reqs)
+    assert eng.finished[-1].done, "unfinished"
     assert all(0 <= t < cfg.vocab_size for r in eng.finished for t in r.out_ids)
     assert isinstance(text, str)
     expected = expected_launches(cfg, eng.prefills, eng.steps)
     log(f"  prefills={eng.prefills} decode_steps={eng.steps} "
         f"launches={counts} expected={expected}")
     assert counts == expected, "launch counts differ from the main path's"
-    gen_tokens = sum(len(r.out_ids) for r in reqs)
-    m.update(tokens=gen_tokens, wall_s=wall, tok_s=gen_tokens / wall,
-             mean_ttft_ms=1e3 * stats["mean_ttft_s"],
-             decode_step_ms=1e3 * statistics.median(decode_only),
-             decode_steps_timed=len(decode_only), prefills=eng.prefills,
-             steps=eng.steps, launches=counts)
-    log(f"  serving: {gen_tokens} tokens in {wall:.3f} s = {m['tok_s']:.1f} tok/s, "
-        f"mean TTFT {m['mean_ttft_ms']:.2f} ms, decode step (median of "
-        f"{len(decode_only)}) {m['decode_step_ms']:.3f} ms; TorchLLM -> {text!r}")
+    m.update(w, prefills=eng.prefills, steps=eng.steps, launches=counts)
+    log(f"  serving: {w['tokens']} tokens in {w['wall_s']:.3f} s = "
+        f"{w['tok_s']:.1f} tok/s, mean TTFT {w['mean_ttft_ms']:.2f} ms, decode "
+        f"step (median of {w['decode_steps_timed']}) {w['decode_step_ms']:.3f} "
+        f"ms; TorchLLM -> {text!r}")
 
     # Attention prompts are padded to a bucket (64 here); rwkv and hymba
     # prompts run at their exact length (48 here, about that of PROMPTS).
@@ -1229,11 +1317,14 @@ def prefill(cfg, params, ids, device, extra=None):
     """Prefill the prompts ``ids`` on ``device``: attention prompts
     right-padded into one batch with true_lens, beside the batch entries of
     ``extra`` (frames or patches, moved to ``device``); rwkv and hymba
-    prompts one by one at their own length, their caches then joined along
-    the batch dimension."""
+    prompts, and prompts longer than a window's or chunk's ring (which the
+    engine prefills at their exact length too), one by one at their own
+    length, their caches then joined along the batch dimension."""
+    from repro_torch.configs import effective_cache_len
     from repro_torch.models.model import prefill_step
 
-    if cfg.family not in ("ssm", "hybrid"):
+    padded_fits = effective_cache_len(cfg, 64) >= max(len(i) for i in ids)
+    if cfg.family not in ("ssm", "hybrid") and padded_fits:
         S = max(len(i) for i in ids)
         batch = {k: v.to(device) for k, v in (extra or {}).items()}
         batch["tokens"] = torch.tensor([i + [0] * (S - len(i)) for i in ids],
@@ -1243,6 +1334,7 @@ def prefill(cfg, params, ids, device, extra=None):
         n_patches = batch["patches"].shape[1] if "patches" in batch else 0
         return prefill_step(cfg, params, batch, max_len=64 + n_patches,
                             true_lens=lens)
+    assert not extra, "frames or patches take the padded batch"
     rows = [prefill_step(cfg, params, {"tokens": torch.tensor(
         [i], dtype=torch.int32, device=device)}, max_len=64) for i in ids]
     cache = {k: torch.cat([c[k] for c, _ in rows], dim=0 if k == "pos" else 1)
@@ -1250,13 +1342,17 @@ def prefill(cfg, params, ids, device, extra=None):
     return cache, torch.cat([lg for _, lg in rows])
 
 
-def cpu_vs_card(arch, tol=1e-3, kv_quant=False):
+def cpu_vs_card(arch, tol=1e-3, kv_quant=False, reduced=False):
+    """``arch`` at full width cut to 2 layers, or its reduced config (head
+    dim 16, vocab 512 for the byte tokenizer), at fp32 on the CPU and on
+    the card: prefill and 8 greedy decode steps."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import decode_step, init_model
     from repro_torch.serving.tokenizer import ByteTokenizer
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32",
-                              kv_quant=kv_quant)
+    cfg = (dataclasses.replace(get_config(arch).reduced(), vocab_size=512)
+           if reduced else dataclasses.replace(get_config(arch), n_layers=2))
+    cfg = dataclasses.replace(cfg, dtype="float32", kv_quant=kv_quant)
     # drawn on the card (fast) and copied to the CPU
     gen = torch.Generator(device="cuda").manual_seed(1)
     gpu_params = init_model(cfg, gen, "cuda")
@@ -1310,7 +1406,8 @@ def cpu_vs_card(arch, tol=1e-3, kv_quant=False):
             continue
         assert diff.max().item() <= tol, f"cache {k} differs by {diff.max():.3e} > {tol}"
     name = arch + (" kv_quant" if kv_quant else "")
-    log(f"  {name} cpu vs card fp32 (2 layers, full width, 3 prompts, prefill "
+    size = ("reduced, head dim 16" if reduced else "2 layers, full width")
+    log(f"  {name} cpu vs card fp32 ({size}, 3 prompts, prefill "
         f"+ 8 decode steps): max |logit diff| {worst:.3e} <= {tol}; "
         f"differing greedy tokens: {near_ties}"
         + (f"; int8 codes off by one: {flips} of "
@@ -1453,6 +1550,313 @@ def free_card():
 
 
 # ---------------------------------------------------------------------------
+# assigned shapes: decode_32k and prefill_32k on full-width dcache-agent-150m
+# ---------------------------------------------------------------------------
+
+def spec_bytes(tree):
+    """The bytes of a tree of (meta) tensors."""
+    if isinstance(tree, dict):
+        return sum(spec_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def assert_fits(what, nbytes):
+    free = torch.cuda.mem_get_info()[0]
+    assert nbytes < free, (f"{what}: needs {nbytes / 2**30:.2f} GiB, "
+                           f"{free / 2**30:.2f} GiB free")
+    log(f"  {what}: {nbytes / 2**30:.2f} GiB of {free / 2**30:.2f} GiB free")
+
+
+def decode_32k(cfg, params, gen, m):
+    """decode_32k: B 128 over a ring of 32,768 slots, every slot valid (pos
+    past the ring's end), the ring drawn from ``gen`` layer by layer. 3
+    warm-up and 10 timed decode_steps (CUDA events), one profiled step;
+    then one layer's decode attention at this size against its plain
+    version, 16 rows at a time."""
+    from repro_torch.configs import DECODE_32K, input_specs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import analytic_hbm_bytes
+    from repro_torch.models.model import decode_step
+
+    shape = DECODE_32K
+    B, S, L = shape.global_batch, shape.seq_len, cfg.n_layers
+    specs = input_specs(cfg, shape)
+    assert_fits("decode_32k inputs (tokens and the ring)", spec_bytes(specs))
+    cache = {}
+    for k, t in specs["cache"].items():
+        cache[k] = torch.empty(t.shape, dtype=t.dtype, device="cuda")
+        if k == "pos":    # 100 to 227 tokens past the ring's end: all valid
+            cache[k].copy_(torch.arange(S + 100, S + 100 + B, dtype=torch.int32))
+        else:
+            for layer in cache[k]:
+                layer.normal_(generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, tuple(specs["tokens"].shape),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    step = lambda: decode_step(cfg, params, tokens, cache)  # noqa: E731
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        for _ in range(3):
+            step()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(10)]
+        for a, b in ev:
+            a.record()
+            logits, _ = step()
+            b.record()
+        torch.cuda.synchronize()
+        per_call, busy, wall_us, _ = device_profile(
+            step, 1, "profile_dcache_decode_32k.txt", warmup=False)
+    counts = ops.launch_counts()
+    expected = expected_launches(cfg, 0, 14)
+    log(f"  decode_32k launches={counts} expected={expected}")
+    assert counts == expected, "decode_32k launch counts differ"
+    assert tuple(logits.shape) == (B, 1, cfg.padded_vocab)
+    assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
+    step_ms = statistics.median(a.elapsed_time(b) for a, b in ev)
+    dev_ms = sum(per_call.values()) / 1e3
+    dec_us = kernel_device_us(per_call, "decode_kernel") / L
+    hbm = analytic_hbm_bytes(cfg, shape, 1)
+    bound = 1e3 * hbm / PEAK_BYTES_S
+    # the decode kernel's own bytes: the whole ring of a layer, q and out
+    ring = 2 * B * S * cfg.n_kv_heads * cfg.head_dim_ * 2
+    m["decode_32k"] = dict(
+        B=B, C=S, step_ms=step_ms, device_ms=dev_ms, busy=busy,
+        host_wall_ms=wall_us / 1e3, decode_kernel_us=dec_us,
+        decode_kernel_bound_us=1e6 * ring / PEAK_BYTES_S,
+        analytic_hbm_bytes=hbm, bound_ms=bound, share_of_bound=bound / step_ms,
+        launches=counts)
+    log(f"  decode_32k (B {B}, ring {S}, bf16): step {step_ms:.3f} ms (CUDA "
+        f"events, median of 10 after 3 warm-up), device {dev_ms:.3f} ms "
+        f"(profiled step, busy {100 * busy:.1f}%), decode kernel "
+        f"{dec_us:.1f} us a launch (its ring read {ring / 1e9:.3f} GB: "
+        f"{1e6 * ring / PEAK_BYTES_S:.1f} us at 3.35 TB/s); bound "
+        f"analytic_hbm_bytes {hbm / 1e9:.3f} GB / 3.35 TB/s = {bound:.3f} ms, "
+        f"the step at {100 * bound / step_ms:.1f}% of it")
+    hq, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    k = cache["k"][0].view(B, S, kvh, hd).transpose(1, 2)
+    v = cache["v"][0].view(B, S, kvh, hd).transpose(1, 2)
+    q = randn(gen, B, hq, hd, dtype=cfg.torch_dtype)
+    m["decode_32k"]["max_row_rel_err"] = hold_decode_ring(
+        q, k, v, cache["pos"], m.setdefault("errs", {}))
+    return counts
+
+
+def hold_decode_ring(q, k, v, pos, errs):
+    """Layer 0 of decode_32k against the plain version: the kernel over all
+    rows, the plain version 16 rows at a time (its fp32 copy of the ring
+    would not fit at once); held absolutely and row by row relative to the
+    rows' size (a dropped split-K partial shows only there). Returns the
+    worst row's relative error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+
+    B, C = q.shape[0], k.shape[2]
+    with torch.no_grad():
+        out = ops.decode_attention(q, k, v, pos)
+        gold = torch.cat([decode_attention_plain(q[i:i + 16], k[i:i + 16],
+                                                 v[i:i + 16], pos[i:i + 16])
+                          for i in range(0, B, 16)])
+    case = f"decode_32k layer 0 (B {B}, C {C})"
+    compare("decode_attention", case, out, gold, q.dtype, errs)
+    return compare_rows("decode_attention", case, out, gold, q.dtype).max().item()
+
+
+def hold_flash_head(q, k, v, bi, h, errs):
+    """One (batch row, head) of flash's causal output at full S against the
+    plain version of that head alone; held absolutely and query row by
+    query row relative to each row's size (late rows, which only a long
+    prompt has, average over the most keys and have the smallest outputs).
+    Returns the worst row's and the last 1,024 rows' worst relative error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    S, hq, kvh = q.shape[2], q.shape[1], k.shape[1]
+    g = h // (hq // kvh)
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v)[bi:bi + 1, h:h + 1]
+        gold = flash_attention_plain(q[bi:bi + 1, h:h + 1], k[bi:bi + 1, g:g + 1],
+                                     v[bi:bi + 1, g:g + 1])
+    case = f"prefill_32k layer 0 row {bi} head {h} (S {S})"
+    compare("flash_attention", case, out, gold, q.dtype, errs)
+    ratio = compare_rows("flash_attention", case, out, gold, q.dtype)
+    late = ratio[-1024:].max().item()
+    log(f"  flash_attention {case}: last 1,024 query rows' worst "
+        f"rms(err)/rms(row)={late:.3e}")
+    return ratio.max().item(), late
+
+
+def prefill_32k(cfg, params, gen, m):
+    """prefill_32k: B 32 x S 32,768 through prefill_step (the batch cut
+    where its working set would not fit), timed with CUDA events and then
+    profiled once; flash's share of the device time. Then flash on one
+    layer's q (drawn), k and v (the prefilled cache's layer 0) against
+    SDPA's time on the same inputs, and one (row, head) of its output held
+    against the plain version of that head alone (a full plain version
+    would need 1.6 TB of scores)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import PREFILL_32K, alloc_cache, input_specs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import analytic_hbm_bytes
+    from repro_torch.models.model import prefill_step
+
+    shape = PREFILL_32K
+    S, L, D, F_ = shape.seq_len, cfg.n_layers, cfg.d_model, cfg.d_ff
+    es = 2
+
+    def working_set(b):
+        """Peak bytes of prefill_step: the cache's layer list and its stack
+        at the end, or the last layer's list beside its FFN (up, gate,
+        silu(gate), product) and three residual-width tensors."""
+        kv = spec_bytes(alloc_cache(cfg, b, S, torch.device("meta")))
+        mid = kv * (L - 1) / L + b * S * (4 * F_ + 3 * D) * es
+        return max(mid, 2 * kv + 2 * b * S * D * es)
+
+    B, free = shape.global_batch, torch.cuda.mem_get_info()[0]
+    while 1.25 * working_set(B) > free and B > 1:
+        B //= 2
+    cut = B != shape.global_batch
+    log(f"  prefill_32k: working set at B {B} about "
+        f"{working_set(B) / 2**30:.2f} GiB (x1.25 margin) of {free / 2**30:.2f} "
+        f"GiB free" + (f"; batch cut from {shape.global_batch} to {B}" if cut
+                       else "; no batch cut"))
+    specs = input_specs(cfg, shape)
+    tokens = torch.randint(0, cfg.vocab_size, (B, specs["tokens"].shape[1]),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    run = lambda: prefill_step(cfg, params, {"tokens": tokens})  # noqa: E731
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        cache, logits = run()
+        b.record()
+        torch.cuda.synchronize()
+        prefill_ms = a.elapsed_time(b)
+        assert int(cache["pos"][0]) == S and tuple(cache["k"].shape) == (
+            L, B, S, cfg.n_kv_heads * cfg.head_dim_)
+        assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
+        k0, v0 = cache["k"][0].clone(), cache["v"][0].clone()
+        del cache, logits
+        per_call, busy, _, _ = device_profile(
+            run, 1, "profile_dcache_prefill_32k.txt", warmup=False)
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launch_counts()
+    expected = expected_launches(cfg, 2, 0)
+    log(f"  prefill_32k launches={counts} expected={expected}")
+    assert counts == expected, "prefill_32k launch counts differ"
+    dev_ms = sum(per_call.values()) / 1e3
+    flash_ms = kernel_device_us(per_call, "flash_kernel") / 1e3
+    hbm = analytic_hbm_bytes(cfg, dataclasses.replace(shape, global_batch=B), 1)
+    # one layer's flash at this size: kernel, SDPA (the library figure)
+    hq, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = randn(gen, B, S, hq, hd, dtype=cfg.torch_dtype).transpose(1, 2)
+    k = k0.view(B, S, kvh, hd).transpose(1, 2)
+    v = v0.view(B, S, kvh, hd).transpose(1, 2)
+    with torch.no_grad():
+        kern = lambda: ops.flash_attention(q, k, v)  # noqa: E731
+        fl_ms = time_ms(kern, iters=3, warmup=1)
+        qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=True, enable_gqa=True), iters=3, warmup=1)
+        del qc, kc, vc
+    row_rel, late_rel = hold_flash_head(q, k, v, B - 1, hq - 1,
+                                        m.setdefault("errs", {}))
+    pairs = S * (S + 1) // 2
+    fl_bound, fl_by = bound_ms((2 * hq + 2 * kvh) * B * S * hd * es,
+                               4 * pairs * hq * hd * B, cfg.torch_dtype)
+    m["prefill_32k"] = dict(
+        B=B, S=S, batch_cut=cut, prefill_ms=prefill_ms, device_ms=dev_ms,
+        busy=busy, flash_device_ms=flash_ms, flash_share=flash_ms / dev_ms,
+        peak_bytes=peak, analytic_hbm_bytes=hbm,
+        bound_ms=1e3 * hbm / PEAK_BYTES_S, flash_layer_ms=fl_ms,
+        sdpa_layer_ms=sdpa_ms, flash_layer_bound_ms=fl_bound,
+        flash_layer_bound_by=fl_by, max_row_rel_err=row_rel,
+        last_rows_rel_err=late_rel, launches=counts)
+    log(f"  prefill_32k (B {B} x S {S}, bf16): prefill {prefill_ms:.1f} ms (CUDA "
+        f"events), device {dev_ms:.1f} ms (profiled, busy {100 * busy:.1f}%), "
+        f"flash {flash_ms:.1f} ms of it ({100 * flash_ms / dev_ms:.1f}%); peak "
+        f"memory {peak / 2**30:.2f} GiB; analytic_hbm_bytes {hbm / 1e9:.2f} GB "
+        f"= {1e3 * hbm / PEAK_BYTES_S:.2f} ms at 3.35 TB/s; one layer's flash "
+        f"{fl_ms:.2f} ms, SDPA {sdpa_ms:.2f} ms, bound {fl_bound:.2f} ms ({fl_by})")
+    return counts
+
+
+def assigned_shapes():
+    """Full-width dcache-agent-150m in bf16 at the assigned shapes that run
+    on one card: decode_32k and prefill_32k. train_4k (1 M tokens a step)
+    is not run (ROADMAP), and long_500k is skipped by shape_applicable."""
+    from repro_torch.configs import SHAPES, get_config, shape_applicable
+    from repro_torch.models.model import init_model
+
+    cfg = get_config("dcache-agent-150m")
+    for name, shape in SHAPES.items():
+        skip = shape_applicable(cfg, shape)
+        if skip:
+            log(f"  {name}: skipped by shape_applicable: {skip}")
+    log("  train_4k: not run here (256 x 4,096 tokens a step: as 8 x 4,096 "
+        "micro-batches, 32 accumulated forward and backward passes a step)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model(cfg, gen, "cuda")
+    m = {}
+    counts = decode_32k(cfg, params, gen, m)
+    free_card()
+    c = prefill_32k(cfg, params, gen, m)
+    return {k: counts[k] + c[k] for k in counts}, m
+
+
+# ---------------------------------------------------------------------------
+# the serving bench's twin on the card
+# ---------------------------------------------------------------------------
+
+BENCH_RUNS = 5
+
+
+def bench_phase():
+    """repro_torch.launch.serving_bench's run at its reference configuration
+    (reduced dcache-agent-150m, head dim 16, the seeded weights of
+    ``bench_serving``), its rows and its launch counts against the engine's
+    own prefills and steps; phase 3's full-width dcache workload BENCH_RUNS
+    times in this process after a warm-up (the spread of one card);
+    bench_kernels' row."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serving_bench
+    from repro_torch.models.model import init_model
+    from repro_torch.serving import ServingEngine
+
+    cfg = serving_bench.bench_config()
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    ops.reset_launch_counts()
+    eng, reqs, seconds = serving_bench.run_bench(cfg, params, 6, 8, "cuda")
+    counts = ops.launch_counts()
+    rows = serving_bench.serving_rows(eng, seconds)
+    expected = expected_launches(cfg, eng.prefills, eng.steps)
+    log("  " + " | ".join(rows) + f"; prefills={eng.prefills} "
+        f"decode_steps={eng.steps} launches={counts} expected={expected}")
+    assert all(r.done for r in reqs), "unfinished bench requests"
+    assert counts == expected, "bench launch counts differ"
+    assert rows[1] == "serving,requests,6"
+
+    cfg = get_config("dcache-agent-150m")
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    ServingEngine(cfg, params, max_batch=4, max_len=512,
+                  device="cuda").generate_text(PROMPTS[0], max_new_tokens=4)
+    runs = []
+    for _ in range(BENCH_RUNS):
+        eng = ServingEngine(cfg, params, max_batch=4, max_len=512, device="cuda")
+        runs.append(serve_workload(eng))
+    krow = serving_bench.bench_kernels()
+    log("  " + krow[0])
+    m = dict(rows=rows, kernel_row=krow[0], runs=runs, launches=counts)
+    for key in ("tok_s", "mean_ttft_ms", "decode_step_ms"):
+        vals = [r[key] for r in runs]
+        m[key] = dict(median=statistics.median(vals), min=min(vals), max=max(vals))
+    return counts, m
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training, then serving the trained weights
 # ---------------------------------------------------------------------------
 
@@ -1480,7 +1884,9 @@ def train_full_width():
     finite, the mean of the last 5 losses at least 0.5 under the first 5's,
     no kernel launched. The trained params (bf16, no grad) then serve the
     twin's 8 prompts through its serve() with exact launch counts and one
-    TorchLLM decision. Then 3 more steps under the profiler."""
+    TorchLLM decision. Then 3 more steps under the profiler. Before it the
+    same 30 steps with remat="dots" from the same seeds: its median step
+    and peak memory beside block's, every loss within 1e-3 relative."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import HeartbeatMonitor
     from repro_torch.kernels import ops
@@ -1488,25 +1894,47 @@ def train_full_width():
     from repro_torch.models.model import init_model
     from repro_torch.training import AdamWConfig, Prefetcher, TokenStream
 
-    cfg = get_config("dcache-agent-150m")
-    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    def run(remat):
+        """TRAIN_STEPS steps of the twin's train() under ``remat``, from the
+        same weights and data seeds."""
+        cfg = dataclasses.replace(get_config("dcache-agent-150m"), remat=remat)
+        params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mon = HeartbeatMonitor()
+        pf = Prefetcher(TokenStream(cfg, batch=TRAIN_B, seq=TRAIN_S, seed=0))
+        t0 = time.perf_counter()
+        try:
+            loop, metrics = serve_llm.train(
+                cfg, params, pf, TRAIN_STEPS,
+                AdamWConfig(lr=1e-3, warmup_steps=3, total_steps=TRAIN_STEPS),
+                monitor=mon)
+        finally:
+            pf.close()
+        return (cfg, loop, metrics, mon, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated())
+
     before = ops.launch_counts()
-    mon = HeartbeatMonitor()
-    pf = Prefetcher(TokenStream(cfg, batch=TRAIN_B, seq=TRAIN_S, seed=0))
-    t0 = time.perf_counter()
-    try:
-        loop, metrics = serve_llm.train(
-            cfg, params, pf, TRAIN_STEPS,
-            AdamWConfig(lr=1e-3, warmup_steps=3, total_steps=TRAIN_STEPS),
-            monitor=mon)
-    finally:
-        pf.close()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    # remat="dots" (the products' outputs kept) beside the default "block"
+    dcfg, dloop, dmetrics, dmon, _, dpeak = run("dots")
+    assert ops.launch_counts() == before, "training launched a hand-written kernel"
+    del dloop
+    free_card()
+    cfg, loop, metrics, mon, wall, peak = run("block")
+    assert cfg.remat == "block" and dcfg.remat == "dots"
+    n_params = sum(t.numel() for t in tree_leaves(loop.params))
+    dots = dict(losses=[m["loss"] for m in dmetrics],
+                step_ms=1e3 * statistics.median(dmon.step_times), peak_bytes=dpeak)
     losses = [m["loss"] for m in metrics]
+    dots["max_loss_rel"] = max(abs(a - b) / abs(b)
+                               for a, b in zip(dots["losses"], losses))
+    log(f"  remat dots vs block, {TRAIN_STEPS} steps at {TRAIN_B}x{TRAIN_S}: "
+        f"median step {dots['step_ms']:.2f} vs "
+        f"{1e3 * statistics.median(mon.step_times):.2f} ms, peak memory "
+        f"{dpeak / 2**30:.3f} vs {peak / 2**30:.3f} GiB; largest loss "
+        f"difference {dots['max_loss_rel']:.2e} relative (<= 1e-3)")
+    assert dots["max_loss_rel"] <= 1e-3, "dots and block losses differ"
     gnorms = [m["grad_norm"] for m in metrics]
     assert all(map(math.isfinite, losses + gnorms)), "a loss or grad_norm is not finite"
     first, last = statistics.fmean(losses[:5]), statistics.fmean(losses[-5:])
@@ -1563,7 +1991,35 @@ def train_full_width():
         tok_s=tok_s, peak_bytes=peak, wall_s=wall, profile_wall_ms=wall_us / 1e3,
         profile_device_ms=dev_us / 1e3, busy=busy, launch_api_calls=api,
         flops=flops, mfu=mfu, peak_flops=PEAK_FLOPS[torch.bfloat16],
-        top_us=dict(top), serve_launches=counts, decision=text)
+        top_us=dict(top), serve_launches=counts, decision=text, dots=dots)
+
+
+def smoke_launchers():
+    """launch.serve's and launch.serve_llm's ``--smoke`` mains on the card
+    (the reduced configs, head dim 16), each held to the launch counts its
+    returned engine's prefills and steps imply (serve_llm's training
+    launches none)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, serve_llm
+
+    counts, m = {}, {}
+    for name, argv, fn in (("launch.serve", ["--smoke"], serve.main),
+                           ("launch.serve_llm", ["--smoke"], serve_llm.main)):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng = fn(argv)
+        torch.cuda.synchronize()
+        c = ops.launch_counts()
+        expected = expected_launches(eng.cfg, eng.prefills, eng.steps)
+        m[name] = dict(seconds=time.perf_counter() - t0, prefills=eng.prefills,
+                       steps=eng.steps, launches=c)
+        log(f"  {name} --smoke on cuda: {m[name]['seconds']:.2f} s, "
+            f"prefills={eng.prefills} decode_steps={eng.steps} launches={c} "
+            f"expected={expected}")
+        assert eng.steps > 0 and c == expected, f"{name}: launch counts differ"
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts, m
 
 
 def train_cpu_vs_card(arch, B, S):
@@ -1777,6 +2233,10 @@ def main() -> int:
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas)
     assert all(a == b == "0" for a, b in spills), "a kernel instance spills"
     log(f"  {len(spills)} kernel instances built, none spills")
+    small = small_dim_instances(ptxas)
+    for name, regs, spill in small:
+        log(f"  head dim {name}: {regs} registers, {spill}")
+    assert len(small) == 12, f"expected 12 head-dim 16/32 instances, got {len(small)}"
 
     log("phase 2: kernels against their plain versions on the card")
     t2 = time.perf_counter()
@@ -1807,6 +2267,25 @@ def main() -> int:
     errs["decode_attention"] = max(errs["decode_attention"], paged["max_abs_err"])
     free_card()
 
+    log("assigned shapes: decode_32k and prefill_32k, full-width "
+        "dcache-agent-150m in bf16")
+    ta = time.perf_counter()
+    c, shapes = assigned_shapes()
+    for k, v in c.items():
+        counts[k] = counts.get(k, 0) + v
+    for k, v in shapes.pop("errs").items():
+        errs[k] = max(errs[k], v)
+    phase_s["assigned shapes"] = time.perf_counter() - ta
+    free_card()
+
+    log("bench: the serving bench's twin on the card")
+    tb = time.perf_counter()
+    c, bench = bench_phase()
+    for k, v in c.items():
+        counts[k] = counts.get(k, 0) + v
+    phase_s["bench"] = time.perf_counter() - tb
+    free_card()
+
     # phase 4 covers each kernel instance's head dim and group: d 64 (dense,
     # kv_quant), the WKV path, d 128 at G 4 with qk_norm, d 96 at G 1, d 128
     # at G 1 with non-zero QKV biases, the MoE block at d 128 G 6, and the
@@ -1825,6 +2304,24 @@ def main() -> int:
                            cpu_vs_card_near_ties=ties,
                            cpu_vs_card_int8_code_flips=flips)
         free_card()
+    # the reduced configs (head dim 16) of the dense, MoE, hybrid, encdec and
+    # vlm families, then the launchers' --smoke mains on the card
+    reduced = {}
+    for arch in ("dcache-agent-150m", "mixtral-8x22b", "hymba-1.5b",
+                 "seamless-m4t-large-v2", "llava-next-34b"):
+        log(f"phase 4: CPU vs card, fp32, {arch} reduced")
+        t4 = time.perf_counter()
+        worst, ties, _ = cpu_vs_card(arch, reduced=True)
+        phase_s["4 " + arch + " reduced"] = time.perf_counter() - t4
+        reduced[arch] = dict(max_logit_diff=worst, near_ties=ties)
+        free_card()
+    log("phase 4: the launchers' --smoke mains on the card")
+    t4 = time.perf_counter()
+    c, smoke = smoke_launchers()
+    for k, v in c.items():
+        counts[k] = counts.get(k, 0) + v
+    phase_s["4 smoke launchers"] = time.perf_counter() - t4
+    free_card()
 
     log("phase 5: training on the card, then serving the trained weights")
     t5 = time.perf_counter()
@@ -1855,6 +2352,29 @@ def main() -> int:
         f"busy={100 * training['busy']:.1f}% "
         f"launch_api_calls={training['launch_api_calls']:.0f} "
         f"model_flop_share={100 * training['mfu']:.2f}% of 989 TFLOP/s")
+    d = training["dots"]
+    log(f"card: {card} | training remat dots vs block: step_ms="
+        f"{d['step_ms']:.2f} vs {training['step_ms']:.2f} peak_GiB="
+        f"{d['peak_bytes'] / 2**30:.3f} vs {training['peak_bytes'] / 2**30:.3f} "
+        f"max_loss_rel={d['max_loss_rel']:.2e}")
+    dk, pf = shapes["decode_32k"], shapes["prefill_32k"]
+    log(f"card: {card} | decode_32k dcache-agent-150m B={dk['B']} C={dk['C']}: "
+        f"step_ms={dk['step_ms']:.3f} device_ms={dk['device_ms']:.3f} "
+        f"decode_kernel_us={dk['decode_kernel_us']:.1f} "
+        f"bound_ms={dk['bound_ms']:.3f} share_of_bound="
+        f"{100 * dk['share_of_bound']:.1f}%")
+    log(f"card: {card} | prefill_32k dcache-agent-150m B={pf['B']} S={pf['S']}"
+        f"{' (batch cut)' if pf['batch_cut'] else ''}: prefill_ms="
+        f"{pf['prefill_ms']:.1f} device_ms={pf['device_ms']:.1f} flash_share="
+        f"{100 * pf['flash_share']:.1f}% bound_ms={pf['bound_ms']:.2f} "
+        f"flash_layer_ms={pf['flash_layer_ms']:.2f} sdpa_layer_ms="
+        f"{pf['sdpa_layer_ms']:.2f} peak_GiB={pf['peak_bytes'] / 2**30:.2f}")
+    log(f"card: {card} | bench {' '.join(bench['rows'][1:])} "
+        f"{bench['kernel_row']}")
+    log(f"card: {card} | dcache-agent-150m serving x{BENCH_RUNS} in one process "
+        + " ".join(f"{k}=median {v['median']:.3f} min {v['min']:.3f} max "
+                   f"{v['max']:.3f}" for k, v in bench.items()
+                   if k in ("tok_s", "mean_ttft_ms", "decode_step_ms")))
     rc, rg = ckpt["restore_cpu"], ckpt["restore_cuda"]
     log(f"card: {card} | checkpoint dcache-agent-150m ({ckpt['codec']}): "
         f"bytes_on_disk={ckpt['bytes_on_disk']} save_s={ckpt['save_s']:.2f} "
@@ -1885,9 +2405,11 @@ def main() -> int:
                                "src/repro/kernels/flash_attention.py:108"),
            "wkv": ("src/repro_torch/kernels/csrc/rwkv_wkv.cu",
                    "src/repro/kernels/rwkv_wkv.py:56")}
-    # launches: summed over the three served paths, the paged phase and
-    # the serving of the trained and of the restored weights, each counted
-    # from zero
+    # launches: summed over phase 3's served paths, the paged phase, the
+    # assigned shapes (decode_32k, prefill_32k), the bench's served run, the
+    # two --smoke mains and the serving of the trained and of the restored
+    # weights; each counted from zero and held to the counts its own
+    # prefills and steps imply (expected_launches)
     # dims_held: the head dims (row widths for rmsnorm) each kernel was held
     # at in phase 2; the times are at dcache-agent-150m's (or rwkv6-7b's)
     # shapes, the other served shapes' are in chip_smoke.json's "timing"
@@ -1900,14 +2422,16 @@ def main() -> int:
                 "library_ms": timing[n]["library_ms"],
                 "dims_held": sorted(HELD[n])} for n in src]
     result = {"card": card, "serving": serve, "paged": paged,
+              "assigned_shapes": shapes, "bench": bench,
+              "reduced_cpu_vs_card": reduced, "smoke_launchers": smoke,
               "training": training, "checkpoint": ckpt, "timing": timing,
               "max_abs_err": errs, "max_abs_err_by_dim": HELD, "kernels": kernels,
               "phase_s": phase_s,
               "command_s": time.perf_counter() - t_start}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(result, f, indent=1)
-    log(f"total {result['command_s']:.1f} s; phase 2 {phase_s['2']:.1f} s; phase 4 "
-        + ", ".join(f"{k[2:]} {v:.1f} s" for k, v in phase_s.items() if k != "2"))
+    log(f"total {result['command_s']:.1f} s; phase seconds: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,7 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
 # the head dims the flash and decode attention kernels are built for
 # (csrc/common.cuh: with_head_dim); each wrapper refuses any other
-ATTENTION_HEAD_DIMS = (64, 96, 128)
+ATTENTION_HEAD_DIMS = (16, 32, 64, 96, 128)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

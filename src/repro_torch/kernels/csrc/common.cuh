@@ -22,6 +22,8 @@ enum ReproDtype { kF32 = 0, kBF16 = 1 };
 template <typename F>
 int with_head_dim(int d, F&& f) {
   switch (d) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
     case 64: return f(std::integral_constant<int, 64>{});
     case 96: return f(std::integral_constant<int, 96>{});
     case 128: return f(std::integral_constant<int, 128>{});
@@ -124,6 +126,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+// Two 8x8 b16 matrices: lanes 0-7 and 8-15 give the row addresses of
+// matrix 0 and 1 (the other lanes' addresses are ignored but must be valid).
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* smem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
 }
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));

@@ -2,8 +2,10 @@
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py:
 // decode_attention / _decode_kernel.
 //
-// Head dims 64, 96 and 128 are built (one template instance each; the
-// registry's dense configs use no other).
+// Head dims 16, 32, 64, 96 and 128 are built (one template instance each):
+// 64, 96 and 128 serve the registry's configs at full width, 16 every
+// config's reduced() (the smoke launchers and the serving bench), 32 the
+// reference's own kernel sweeps.
 //
 // Bound on the H100: bytes. Every K/V slot of the (b, kv head) is read once
 // and used for G query heads, about 4*G flops per element, far below the
@@ -38,7 +40,10 @@
 //   the 16-byte row padding keeps the K reads free of bank conflicts); the
 //   tile's max and sum are warp shuffles; lane j owns D / 32 output columns
 //   (Cols<D>: 2j and 2j+1 at d 64; also 64+2j and 65+2j at d 128; 64+j at
-//   d 96) and takes each slot's weight by shuffle. Loops stop at the range's
+//   d 96; j at d 32) and takes each slot's weight by shuffle. At d 16 the
+//   two half-warps own the 16 columns twice over (lane j column j % 16) and
+//   take alternate slots of the tile, and one shuffle adds the halves' acc
+//   before the merge (m and l are warp-wide already). Loops stop at the range's
 //   last slot. m, l and acc stay fp32, with the masks of the TPU kernel bit
 //   for bit (non-negative ring modulo, floor division for chunks).
 // - Merge: each warp writes its (m, l, acc) straight into the shared memory
@@ -59,9 +64,10 @@
 // src/repro/models/attention.py:decode_attend. Same grid, cluster, masks,
 // tile skipping and merge; what differs is the tile:
 // - a head row of codes is D bytes, D / 16 16-byte cp.async copies (half
-//   the bf16 bytes), into D + 16-byte padded shared-memory rows (80, 112 and
-//   144 bytes: an odd number of 16-byte chunks, as the bf16 rows of 144, 208
-//   and 272 bytes are, so row reads stay free of bank conflicts);
+//   the bf16 bytes), into padded shared-memory rows of 48, 48, 80, 112 and
+//   144 bytes at d 16, 32, 64, 96 and 128 (int8_row: an odd number of
+//   16-byte chunks, as the bf16 rows are, so row reads stay free of bank
+//   conflicts);
 // - the scales (one per slot and kv head, in q's type, strided by Hkv
 //   elements) are too narrow for cp.async: each thread loads its slots'
 //   scales of the next tile into registers when it issues that tile's
@@ -82,20 +88,38 @@ constexpr int kMaxSplit = 8;   // cluster size: the largest portable one
 constexpr int kTile = 64;      // slots per shared-memory tile
 constexpr int kMaxSmem = 232448;   // the opt-in dynamic shared memory a block may use
 
-// The output columns a lane owns: D / 32 of them (2 at d 64, 3 at d 96, 4
-// at d 128). The first 64 * (D / 64) columns go in pairs, columns 64p +
-// 2 lane and 64p + 2 lane + 1 (one 4- or 8-byte access); the last 32 of a
-// D that is not a multiple of 64 go one a lane, column 64 (D / 64) + lane.
-// Either way a warp's accesses to one shared-memory row are consecutive.
+// The output columns a lane owns: D / 32 of them (1 at d 32, 2 at d 64, 3
+// at d 96, 4 at d 128). The first 64 * (D / 64) columns go in pairs,
+// columns 64p + 2 lane and 64p + 2 lane + 1 (one 4- or 8-byte access); the
+// last 32 of a D that is not a multiple of 64 go one a lane, column 64 (D /
+// 64) + lane. Either way a warp's accesses to one shared-memory row are
+// consecutive. At d 16 (kHalves = 2) lane j owns column j % 16 and its
+// half-warp j / 16 takes every other slot (slot_of), so the warp reads two
+// rows at once; owner() marks the lanes that write the merged columns.
 template <int D>
 struct Cols {
-  static_assert(D % 32 == 0, "a warp owns 32 or 64 columns at a time");
+  static_assert(D == 16 || D % 32 == 0, "a warp owns 16, 32 or 64 columns at a time");
+  static constexpr int kHalves = D == 16 ? 2 : 1;   // slots a warp takes at once
   static constexpr int kPairs = D / 64;
-  static constexpr int kSingles = (D % 64) / 32;
+  static constexpr int kSingles = D == 16 ? 1 : (D % 64) / 32;
   static constexpr int kN = 2 * kPairs + kSingles;
   __device__ static __forceinline__ int col(int i, int lane) {
     return i < 2 * kPairs ? 64 * (i / 2) + 2 * lane + (i & 1)
-                          : 64 * kPairs + 32 * (i - 2 * kPairs) + lane;
+                          : 64 * kPairs + 32 * (i - 2 * kPairs) + lane % (32 / kHalves);
+  }
+  // the slot of a step of kHalves slots (from jj) this lane takes
+  __device__ static __forceinline__ int slot_of(int jj, int lane) {
+    return jj + lane / (32 / kHalves);
+  }
+  __device__ static __forceinline__ bool owner(int lane) {
+    return lane < 32 / kHalves;
+  }
+  // add the half-warps' partial sums (every lane ends with the column's total)
+  __device__ static __forceinline__ void join_halves(float* acc) {
+    if (kHalves == 2) {
+#pragma unroll
+      for (int i = 0; i < kN; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], 16);
+    }
   }
 };
 
@@ -145,8 +169,10 @@ __device__ __forceinline__ void merge_partials(float* part, int split, int G,
   cg::cluster_group cluster = cg::this_cluster();
   cluster_wait();
   float* mine = cluster.map_shared_rank(part, 0) + (split * G + g) * (D + 2);
+  if (C::owner(lane)) {
 #pragma unroll
-  for (int i = 0; i < C::kN; ++i) mine[C::col(i, lane)] = acc[i];
+    for (int i = 0; i < C::kN; ++i) mine[C::col(i, lane)] = acc[i];
+  }
   if (lane == 0) {
     mine[D] = m;
     mine[D + 1] = l;
@@ -179,9 +205,11 @@ __device__ __forceinline__ void merge_partials(float* part, int split, int G,
 #pragma unroll
   for (int p = 0; p < C::kPairs; ++p)
     store2(orow + C::col(2 * p, lane), num[2 * p] / den, num[2 * p + 1] / den);
+  if (C::owner(lane)) {
 #pragma unroll
-  for (int i = 2 * C::kPairs; i < C::kN; ++i)
-    orow[C::col(i, lane)] = from_f32<T>(num[i] / den);
+    for (int i = 2 * C::kPairs; i < C::kN; ++i)
+      orow[C::col(i, lane)] = from_f32<T>(num[i] / den);
+  }
 }
 
 // Threads a block may have, one warp per query head: G <= 32, except fp32
@@ -304,13 +332,15 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m = m_new;
 #pragma unroll
     for (int c = 0; c < Cl::kN; ++c) acc[c] *= alpha;
+    // slots past n_i (a step of two at d 16) have p = 0 and zero-filled V
 #pragma unroll
     for (int i = 0; i < kSL; ++i) {
       const int n_i = min(32, n_mine - 32 * i);   // warp-uniform
 #pragma unroll 8
-      for (int jj = 0; jj < n_i; ++jj) {
-        const float p = __shfl_sync(0xffffffffu, s[i], jj);
-        const T* vr = vs + (32 * i + jj) * kRow;
+      for (int jj = 0; jj < n_i; jj += Cl::kHalves) {
+        const int js = Cl::slot_of(jj, lane);
+        const float p = __shfl_sync(0xffffffffu, s[i], js);
+        const T* vr = vs + (32 * i + js) * kRow;
 #pragma unroll
         for (int c = 0; c < Cl::kPairs; ++c) {
           const float2 vv = load2(vr + Cl::col(2 * c, lane));
@@ -327,6 +357,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     stage ^= 1;
   }
 
+  Cl::join_halves(acc);
   merge_partials<T, D>(part, split, G, g, lane, m, l, acc,
                        out + ((int64_t)b * Hkv * G + (int64_t)h * G + g) * D);
 }
@@ -343,6 +374,11 @@ __device__ __forceinline__ float dequant(int code, float s) {
   return to_f32(from_f32<T>(static_cast<float>(code) * s));
 }
 
+// The int8 kernel's padded shared-memory row of codes, in bytes: D + 16,
+// or D + 32 where that would be an even number of 16-byte chunks (d 16).
+template <int D>
+__host__ __device__ constexpr int int8_row() { return (D / 16) % 2 ? D + 32 : D + 16; }
+
 // The int8 variant: k/v are int8 codes, ks/vs the per-slot-per-kv-head
 // scales in T (strides in elements). One warp per query head, as above.
 template <typename T, int D>
@@ -357,7 +393,7 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                    int window, int chunk, float scale) {
   using Cl = Cols<D>;                       // the lane's output columns
   constexpr int kVec = 16 / sizeof(T);      // q elements per 16-byte copy
-  constexpr int kRow = D + 16;              // padded shared-memory row, bytes
+  constexpr int kRow = int8_row<D>();       // padded shared-memory row, bytes
   constexpr int kChunks = D / 16;           // 16-byte copies (16 codes) per row
   constexpr int kSL = kTile / 32;           // slots of a tile per lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -501,13 +537,16 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
     m = m_new;
 #pragma unroll
     for (int c = 0; c < Cl::kN; ++c) acc[c] *= alpha;
+    // slots past n_i (a step of two at d 16) have p = 0, zero codes and
+    // scale 0
 #pragma unroll
     for (int i = 0; i < kSL; ++i) {
       const int n_i = min(32, n_mine - 32 * i);   // warp-uniform
 #pragma unroll 8
-      for (int jj = 0; jj < n_i; ++jj) {
-        const int slot = 32 * i + jj;
-        const float p = __shfl_sync(0xffffffffu, s[i], jj);
+      for (int jj = 0; jj < n_i; jj += Cl::kHalves) {
+        const int js = Cl::slot_of(jj, lane);
+        const int slot = 32 * i + js;
+        const float p = __shfl_sync(0xffffffffu, s[i], js);
         const float sv = vss[slot];
         const int8_t* vr = vst + slot * kRow;
 #pragma unroll
@@ -527,6 +566,7 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
     t = nt;
     stage ^= 1;
   }
+  Cl::join_halves(acc);
   merge_partials<T, D>(part, split, G, g, lane, m, l, acc,
                        out + ((int64_t)b * Hkv * G + (int64_t)h * G + g) * D);
 }
@@ -594,7 +634,7 @@ int launch_int8(const void* q, const void* k, const void* v, const void* ks,
                 const void* vs, const int* pos, void* out, int B, int Hkv, int C,
                 int G, const int64_t* st, int window, int chunk, float scale,
                 cudaStream_t s) {
-  constexpr int kRow = D + 16;
+  constexpr int kRow = int8_row<D>();
   const size_t smem = 4 * kTile * kRow + sizeof(float) * 4 * kTile
                       + sizeof(T) * G * D + sizeof(float) * kMaxSplit * G * (D + 2);
   auto kern = decode_int8_kernel<T, D>;

@@ -1,8 +1,10 @@
 // Forward prefill attention for Hopper. Replaces the TPU kernel
 // src/repro/kernels/flash_attention.py: flash_attention / _flash_kernel.
 //
-// Head dims 64, 96 and 128 are built (one template instance each; the
-// registry's dense configs use no other).
+// Head dims 16, 32, 64, 96 and 128 are built (one template instance each):
+// 64, 96 and 128 serve the registry's configs at full width, 16 every
+// config's reduced() (the smoke launchers and the serving bench), 32 the
+// reference's own kernel sweeps.
 //
 // Bound on the H100: at the serving shapes (B=1, Hq=12, Hkv=4, d=64,
 // S = 8..512; qwen3-4b Hq=32, Hkv=8, d=128; phi3 Hq=Hkv=32, d=96) the
@@ -87,15 +89,19 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ out, int S, int G, Strides st,
                  int causal, int window, int chunk, float scale) {
-  // D / 16 k-steps of Q.K^T taken two at a time, D / 8 n8-tiles of P.V
-  // taken two at a time: 4 and 8 at d 64, 6 and 12 at d 96, 8 and 16 at
-  // d 128. Q's fragments (D / 4 registers, loaded once a tile) and the O
-  // accumulators (D / 2 fp32 a lane) stay in registers: 136, 164 and 194
-  // registers with 0 spills at d 64, 96 and 128 (ptxas, chip_smoke.py
-  // phase 1). Re-reading Q's fragments per k-step pair instead (8 of them
+  // D / 16 k-steps of Q.K^T taken two at a time (one ldmatrix.x4 of K for
+  // both; an odd last k-step, d 16's only one, takes an ldmatrix.x2), D / 8
+  // n8-tiles of P.V taken two at a time: 1 and 2 at d 16, 2 and 4 at d 32,
+  // 4 and 8 at d 64, 6 and 12 at d 96, 8 and 16 at d 128. Rows of D + 8
+  // elements are 48, 80, 144, 208 and 272 bytes, an odd number of 16-byte
+  // chunks each, so the 8 row addresses of every ldmatrix fall in 8
+  // different bank quads. Q's fragments (D / 4 registers, loaded once a
+  // tile) and the O accumulators (D / 2 fp32 a lane) stay in registers:
+  // 84, 105, 136, 164 and 194 registers with 0 spills at d 16, 32, 64, 96
+  // and 128 (ptxas, chip_smoke.py phase 1). Re-reading Q's fragments per k-step pair instead (8 of them
   // live) cut d 128 to 187 registers but made d 64 at S 512 7-10% slower
   // (kernel_ab.py against the held fragments; PERF.md, section 6).
-  static_assert(D % 32 == 0, "k-steps and n8-tiles are taken in pairs");
+  static_assert(D % 16 == 0, "n8-tiles of P.V are taken in pairs");
   using bf16 = __nv_bfloat16;
   constexpr int kRow = D + kPad;
   constexpr int kChunks = D / 8;          // 16-byte copies per row
@@ -175,10 +181,16 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
       sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < D / 16; kk += 2) {
-        uint32_t kb4[4];
-        ldmatrix_x4(kb4, ks + (n * 8 + (lane & 7)) * kRow + kk * 16 + (lane >> 3) * 8);
-        mma_bf16_16816(sc[n], qa[kk], kb4[0], kb4[1]);
-        mma_bf16_16816(sc[n], qa[kk + 1], kb4[2], kb4[3]);
+        if (kk + 1 < D / 16) {
+          uint32_t kb4[4];
+          ldmatrix_x4(kb4, ks + (n * 8 + (lane & 7)) * kRow + kk * 16 + (lane >> 3) * 8);
+          mma_bf16_16816(sc[n], qa[kk], kb4[0], kb4[1]);
+          mma_bf16_16816(sc[n], qa[kk + 1], kb4[2], kb4[3]);
+        } else {   // one k-step left: columns kk*16 .. kk*16 + 15
+          uint32_t kb2[2];
+          ldmatrix_x2(kb2, ks + (n * 8 + (lane & 7)) * kRow + kk * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16_16816(sc[n], qa[kk], kb2[0], kb2[1]);
+        }
       }
     }
 

@@ -1,6 +1,7 @@
 """Serving launcher: batched requests through the port's engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve            # full width, cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke     # reduced, cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --smoke --device cpu
@@ -27,14 +28,16 @@ cache's ``cross_k`` has), through ``prefill_step`` and greedy
 ``decode_step``s. On the card the weights' bytes
 are held against the card's free memory before anything is drawn, and the
 launcher raises, naming both, when they do not fit. ``--smoke`` selects
-the reduced config (vocab 512); its head dim 16 has no kernel instance, so
-it serves on the CPU only.
+the reduced config (vocab 512, head dim 16), which serves on the card as
+on the CPU for every family but rwkv6 (the WKV kernel is built for head
+dim 64 only, so ``--smoke --arch rwkv6-7b`` runs with ``--device cpu``).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -97,7 +100,9 @@ def generate_encdec(cfg: ModelConfig, params, ids, frames: torch.Tensor,
     return torch.stack(out, dim=1)
 
 
-def main(argv=None):
+def main(argv=None) -> Optional[ServingEngine]:
+    """Serve ``--requests`` prompts and print them; returns the engine (None
+    for the encoder-decoder, which generates without one)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="dcache-agent-150m", choices=ALL_IDS)
     ap.add_argument("--smoke", action="store_true",
@@ -130,7 +135,7 @@ def main(argv=None):
         for i, row in zip(ids, out.tolist()):
             print(f"{tok.decode(i)!r} + {frames.shape[1]} frames -> "
                   f"{tok.decode(row)!r}")
-        return
+        return None
     eng = ServingEngine(cfg, params, max_batch=args.max_batch,
                         max_len=args.max_len, device=dev)
     reqs = [eng.submit(PROMPTS[i % len(PROMPTS)], max_new_tokens=args.max_new)
@@ -140,6 +145,7 @@ def main(argv=None):
         print(f"[{r.rid}] {eng.tok.decode(r.prompt_ids)!r} -> "
               f"{eng.tok.decode(r.out_ids)!r}")
     print("stats:", eng.stats())
+    return eng
 
 
 if __name__ == "__main__":

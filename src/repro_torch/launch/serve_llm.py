@@ -3,15 +3,15 @@ a model briefly, serve batched requests through the continuous-batching
 engine, then use it as the agent's decision LLM (``TorchLLM``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_llm             # full width, cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve_llm --smoke     # reduced, cuda
     PYTHONPATH=src python -m repro_torch.launch.serve_llm --smoke --device cpu
 
 By default it trains full-width ``dcache-agent-150m`` in bf16 on ``cuda``,
 weights from a ``torch.Generator`` seeded with 0. ``--smoke`` is the JAX
 example's own config (``dcache-agent-150m.reduced()`` with vocab 512, 4
-layers, d 128, 4 heads over 2 kv heads). Its head dim is 16, for which no
-attention kernel is built (the kernels take head dim 64), so ``--smoke``
-runs with ``--device cpu``: on ``cuda`` it trains (training launches no
-kernel) and then the flash-attention wrapper raises at the first prefill.
+layers, d 128, 4 heads over 2 kv heads, head dim 16), served on the card
+by the attention kernels' head-dim 16 instances, or on the CPU by their
+plain versions.
 """
 from __future__ import annotations
 
@@ -80,12 +80,14 @@ def decide(eng: ServingEngine, max_new_tokens: int = 24) -> str:
     return TorchLLM(eng, max_new_tokens=max_new_tokens).complete(DECISION_PROMPT)
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def main(argv: Optional[List[str]] = None) -> ServingEngine:
+    """Train, serve the prompts and ask for a cache decision; returns the
+    serving engine."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--smoke", action="store_true",
-                    help="the JAX example's reduced config (run with --device cpu)")
+                    help="the JAX example's reduced config")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -113,6 +115,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"  [{r.rid}] -> {eng.tok.decode(r.out_ids)!r}")
     print(f"\nTorchLLM cache-decision completion (untuned byte-LM): "
           f"{decide(eng)!r}")
+    return eng
 
 
 if __name__ == "__main__":

@@ -33,9 +33,9 @@ raises on fp32 frames in a bf16 model.
 ``forward(..., is_train=True)`` (what ``loss_fn`` runs) is the training
 route: every norm, attention and WKV call takes its differentiable torch
 ops, the counterpart of JAX's XLA path, each decoder layer is
-rematerialised under ``cfg.remat == "block"`` (the encoder's are not, as
-in the reference), and each MoE layer adds its load-balancing loss to the
-auxiliary loss. The serving steps pass ``is_train=False`` and reach the
+rematerialised under ``cfg.remat`` "block" or "dots" (the encoder's are
+not, as in the reference), and each MoE layer adds its load-balancing
+loss to the auxiliary loss. The serving steps pass ``is_train=False`` and reach the
 kernels.
 """
 from __future__ import annotations
@@ -44,7 +44,8 @@ import functools
 from typing import Dict, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -219,16 +220,35 @@ def _attn_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
     return x + f_out, aux, y
 
 
+# the products with no batch dimension: every projection (a 2- or 3-D
+# activation times a 2-D weight folds to mm) and the MoE router. The
+# batched products (bmm: attention's scores and P.V, the experts, the MoE
+# dispatch and combine, the SSM heads' readout) have a batch dimension in
+# the reference's einsums too, even where it is 1 (one MoE group).
+_NO_BATCH_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: keep the outputs of the
+    products with no batch dimension, recompute everything else."""
+    if op in _NO_BATCH_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(layer, cfg: ModelConfig):
     """Layer rematerialisation (``repro.models.model._remat``): "block"
-    keeps only each layer's input for the backward and recomputes the rest.
-    A layer draws no random numbers, so no RNG state is stashed."""
+    keeps only each layer's input for the backward and recomputes the rest;
+    "dots" also keeps the outputs of the products with no batch dimension
+    (``_dots_policy``), so the backward recomputes no projection (more live
+    memory, less recompute). A layer draws no random numbers, so no RNG
+    state is stashed."""
+    kw = {}
     if cfg.remat == "dots":
-        raise NotImplementedError(
-            'remat="dots" (save the products, recompute the rest) is not '
-            "ported yet; see ROADMAP.md, queue 1")
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
     return functools.partial(checkpoint, layer, use_reentrant=False,
-                             preserve_rng_state=False)
+                             preserve_rng_state=False, **kw)
 
 
 def _stack(cfg: ModelConfig, params: Dict, batch: Dict, *, is_train: bool,

@@ -48,7 +48,14 @@ class TokenStream:
 
 
 class Prefetcher:
-    """Bounded background prefetch queue over a TokenStream."""
+    """Bounded background prefetch queue over a TokenStream.
+
+    A repair of the reference (``repro/training/data.py:59-64``): there a
+    put that waits 0.2 s on a full queue drops its batch and draws the
+    next, so a consumer slower than that skips batches and the data a run
+    sees depends on its step time. Here a batch waits until it is queued
+    (or the prefetcher closes), so every consumer sees the stream in order.
+    """
 
     def __init__(self, stream: TokenStream, depth: int = 2):
         self.stream = stream
@@ -58,9 +65,13 @@ class Prefetcher:
         self._thread.start()
 
     def _fill(self):
+        batch = None
         while not self._stop.is_set():
+            if batch is None:
+                batch = self.stream.next_batch()
             try:
-                self.q.put(self.stream.next_batch(), timeout=0.2)
+                self.q.put(batch, timeout=0.2)
+                batch = None
             except queue.Full:
                 continue
 

@@ -203,7 +203,7 @@ def test_wrappers_refuse_unbuilt_head_dim(card_route, name):
     tops.reset_launch_counts()
     with pytest.raises(ValueError, match="head dim 80"):
         attention_calls(80)[name]()
-    assert HEAD_DIMS == (64, 96, 128)
+    assert HEAD_DIMS == (16, 32, 64, 96, 128)
     for d in HEAD_DIMS:   # accepted: the call gets as far as the library
         with pytest.raises(NoLibrary):
             attention_calls(d)[name]()

@@ -54,6 +54,9 @@ MASKS = {"causal": dict(causal=True), "window": dict(causal=True, window=64),
 @pytest.mark.parametrize("B,Hq,Hkv,S,d", [
     (2, 4, 2, 256, 64), (1, 8, 8, 128, 128), (2, 6, 2, 128, 32),
     (1, 4, 1, 512, 64),
+    # head dims 16 (the reduced configs') and 32 at G 1, 2 and 4
+    (2, 4, 4, 128, 16), (2, 4, 2, 128, 16), (1, 8, 2, 256, 16),
+    (1, 4, 4, 128, 32),
 ])
 @pytest.mark.parametrize("mask", list(MASKS))
 def test_flash_plain_vs_pallas(B, Hq, Hkv, S, d, mask):
@@ -90,6 +93,9 @@ def _pos(seed, B, C):
 
 @pytest.mark.parametrize("B,Hq,Hkv,C,d", [
     (2, 4, 2, 256, 64), (3, 8, 8, 128, 32), (1, 16, 2, 512, 128),
+    # head dims 16 (the reduced configs') and 32 at G 1, 2 and 4
+    (2, 4, 4, 128, 16), (3, 4, 2, 256, 16), (2, 8, 2, 64, 16),
+    (2, 4, 2, 128, 32),
 ])
 @pytest.mark.parametrize("mask", ["none", "window", "chunk"])
 def test_decode_plain_vs_pallas(B, Hq, Hkv, C, d, mask):
@@ -334,3 +340,37 @@ def test_check_aligned(dtype):
         _build.check_aligned("t", buf[..., 1:])
     with pytest.raises(ValueError, match="multiples of 16 bytes"):
         _build.check_aligned("t", buf[..., :64])
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,C,d", [
+    (2, 4, 4, 128, 16), (3, 4, 2, 100, 16), (2, 8, 2, 64, 16),
+    (2, 4, 2, 128, 32), (2, 16, 4, 100, 32),
+])
+@pytest.mark.parametrize("mask", ["none", "window", "chunk"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_int8_plain_small_head_dims(B, Hq, Hkv, C, d, mask, dtype):
+    """The int8 plain version at head dims 16 and 32 against its
+    dequantize-then-attend reference: JAX's quantize_kv codes and scales,
+    dequantize_kv, then the JAX reference attention."""
+    from repro.models import attention as jattn
+
+    kw = {"none": {}, "window": dict(window=8), "chunk": dict(chunk=8)}[mask]
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(21)
+    ring = []
+    for _ in range(2):
+        x = jnp.asarray(rng.normal(0, 1, (B, C, Hkv * d)).astype(np.float32), jdt)
+        codes, scales = jattn.quantize_kv(x, Hkv)
+        deq = jattn.dequantize_kv(codes, scales, jdt).reshape(
+            B, C, Hkv, d).transpose(0, 2, 1, 3)
+        tc = torch.from_numpy(np.array(codes)).view(B, C, Hkv, d).transpose(1, 2)
+        ts = torch.from_numpy(np.array(scales, np.float32)).to(tdt).transpose(1, 2)
+        ring.append((deq, tc, ts))
+    (kd, tk, tks), (vd, tv, tvs) = ring
+    (jq, tq), = arrays(22, (B, Hq, d), dtype=dtype)
+    pos = _pos(23, B, C)
+    gold = jref.ref_decode_attention(jq, kd, vd, jnp.asarray(pos), **kw)
+    out = decode_attention_int8_plain(tq, tk, tv, tks, tvs, torch.from_numpy(pos),
+                                      **kw)
+    assert out.dtype == tdt
+    close(out, gold, dtype)

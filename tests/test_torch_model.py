@@ -147,13 +147,8 @@ def test_bf16_prefill_and_decode_close_to_jax():
 
 
 def test_unported_features_raise():
-    """What is still unported raises: remat="dots" on the training route,
-    and placing onto a mesh of more than one device."""
-    _, tcfg = configs(remat="dots")
-    p = tmodel.init_model(tcfg, torch.Generator().manual_seed(0), "cpu")
-    toks = torch.from_numpy(tokens(tcfg, 1, 9))
-    with pytest.raises(NotImplementedError, match="dots"):
-        tmodel.loss_fn(tcfg, p, {"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+    """What is still unported raises: placing onto a mesh of more than one
+    device. (remat="dots" is ported: tests/test_torch_remat.py.)"""
     for multi_pod in (False, True):
         with pytest.raises(NotImplementedError, match="one device"):
             single_device(make_production_mesh(multi_pod=multi_pod))

@@ -9,6 +9,7 @@ step is close to sign(g), so a gradient element near zero that differs by
 metrics, moments) is held at 3e-5.
 """
 import dataclasses
+import time
 
 import jax
 import jax.numpy as jnp
@@ -163,6 +164,35 @@ def test_prefetcher_keeps_the_stream_order():
     finally:
         pf.close()
     assert not pf._thread.is_alive()
+
+
+def test_prefetcher_keeps_the_order_for_a_slow_consumer():
+    """A consumer slower than the queue's 0.2 s put timeout still sees every
+    batch in order. The reference's Prefetcher drops the batch of a put
+    that times out (a fault the port repairs), so its slow consumer skips
+    batches: recorded here."""
+    cfg = small_cfg()
+    jcfg = dataclasses.replace(jax_get_config("dcache-agent-150m").reduced(),
+                               vocab_size=cfg.vocab_size)
+    for make, stream_cls, c in ((Prefetcher, TokenStream, cfg),
+                                (jdata.Prefetcher, jdata.TokenStream, jcfg)):
+        ref = stream_cls(c, batch=2, seq=8, seed=5)
+        want = [ref.next_batch()["tokens"] for _ in range(12)]
+        pf = make(stream_cls(c, batch=2, seq=8, seed=5), depth=1)
+        try:
+            got = []
+            for _ in range(3):
+                time.sleep(0.5)       # the queue is full: the put times out
+                got.append(next(pf)["tokens"])
+        finally:
+            pf.close()
+        in_order = all(np.array_equal(g, w) for g, w in zip(got, want))
+        assert not pf._thread.is_alive()
+        if make is Prefetcher:
+            assert in_order
+        else:
+            assert not in_order, "the reference's Prefetcher kept the order"
+            assert all(any(np.array_equal(g, w) for w in want) for g in got)
 
 
 # ---------------------------------------------------------------------------
