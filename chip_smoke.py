@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero; nothing is caught):
   1. build the CUDA kernels from src/repro_torch/kernels/csrc/ and print the
      build time and each kernel's ptxas registers, shared memory and spills
-     (any spill fails the run), and the 12 attention instances at head dims
+     (any spill fails the run), the 12 attention instances at head dims
      16 and 32 (flash mma and fma, decode and int8 decode in bf16 and fp32)
-     by name;
+     and the 12 WKV instances (prefill and decode, bf16 and fp32, head dims
+     16, 32 and 64) by name;
   2. hold each kernel against its plain PyTorch version on the card, in bf16
      (atol = rtol = 2e-2) and fp32 (1e-4, sums in another order), at the main
      paths' shapes and ragged ones: flash and decode at every served
@@ -19,15 +20,19 @@ Phases (any failure exits non-zero; nothing is caught):
      the S*G edge, S = 512 (the engine's max_len); G = 16 at d 64; the int8
      decode kernel on rings of 64, 100 and 512 slots at G = 3 and 16 (d 64)
      and G = 1, 4 and 16 (d 96, 128), with windows, chunks, and a ring
-     holding empty (scale 0) and prefill-pad (scale 1.0) slots; a head dim
-     that is not built (80), and an fp32 decode at d 128 with G = 32 (over
-     the kernel's G <= 20 there), must raise and launch nothing; rmsnorm at
-     every served path's d_model at 1, 4, 48, 64 and 257 rows, at d 100,
+     holding empty (scale 0) and prefill-pad (scale 1.0) slots; decode and
+     int8 decode at groups cut into group tiles (G 40 and 64 over one KV
+     head, G 40 over two, G 41 with a short last tile, at d 64 and 128;
+     fp32 also G 32 and 21 at d 96 and 128); a head dim that is not built
+     (80 for attention, 48 for WKV) must raise and launch nothing; rmsnorm
+     at every served path's d_model and d 16 at 1, 4, 48, 64 and 257 rows,
+     at d 100,
      on views off 16 bytes (its scalar path) and at qwen3-4b's
      qk_norm shapes (q (2,37,8,4,128), k (2,37,8,128)), its C++ launch
-     geometry equal to kernels/rmsnorm.py's; WKV around its
-     staged chunk of T steps (T - 1, T, T + 1), at S = 512, from a random
-     state and in place, its state bit-identical to the plain version's;
+     geometry equal to kernels/rmsnorm.py's; WKV at head dims 64 (64
+     heads), 16 (4) and 32 (8) around its staged chunk of T steps (T - 1,
+     T, T + 1), at S = 512, from a random state and in place, its state
+     bit-identical to the plain version's;
      flash at llava's heads (d 128, G 7) at its image request's length (S
      2,912) and at S 2,917, both ragged; prompts of S 32 (seamless's padded
      decoder prompt) and decode rings of 256 slots (seamless's
@@ -42,8 +47,10 @@ Phases (any failure exits non-zero; nothing is caught):
      prefill also at S = 512, llava's image prefill, seamless's encoder
      unmasked at its 256 frames, its cross-attention decode at C 256, the
      three attention kernels at head dims 16 and 32 at the reduced
-     dcache's heads and the serving bench's shapes, and an empty kernel
-     (the launch floor);
+     dcache's heads and the serving bench's shapes, decode at G 40 (d 128)
+     and G 64 (d 64, also int8) in two group tiles, WKV and the per-head
+     rmsnorm at the reduced rwkv6's head dim 16 (and WKV at 32), and an
+     empty kernel (the launch floor);
   3. serve twelve paths at full width in bf16, each with random weights from
      a seeded torch.Generator, through ServingEngine(max_batch=4,
      max_len=512) (8 prompts x 32 new tokens) and then one
@@ -92,7 +99,12 @@ Phases (any failure exits non-zero; nothing is caught):
      time, one (row, head) of it against the plain version of that head);
      both holds absolute and, output row by output row, relative to the
      row's own rms (a long softmax's outputs are below the absolute
-     tolerance); train_4k is not run and long_500k's skip text is logged;
+     tolerance); train_4k (B 256 x S 4,096, 1 M tokens a step) through
+     TrainLoop with accumulated micro-batches: one 8 x 4,096 micro-batch's
+     peak memory sets the smallest accumulation predicted to stay under 70
+     GiB, which runs a warm-up and two timed steps (step ms, tokens/s,
+     peak, model-FLOP share; one micro-batch profiled for its busy share);
+     long_500k's skip text is logged;
   bench: repro_torch.launch.serving_bench's run_bench at its reference
      configuration (head dim 16) with its rows and exact launch counts, phase
      3's dcache workload 5 times in this process after a warm-up (median,
@@ -112,11 +124,12 @@ Phases (any failure exits non-zero; nothing is caught):
      super-layer at full width is 74 GB of fp32 weights on the host; its
      heads are held in phase 2 and its numerics against JAX on the CPU
      (tests/test_torch_moe.py). Then the reduced configs (head dim 16,
-     vocab 512) of dcache-agent-150m, mixtral-8x22b, hymba-1.5b,
-     seamless-m4t-large-v2 and llava-next-34b the same way (a prompt longer
-     than a window's ring prefilled at its own length), and
-     launch.serve's and launch.serve_llm's --smoke mains on the card,
-     held to the launch counts of the engines they return;
+     vocab 512) of every family the same way (REDUCED_ARCHS: dcache, rwkv6
+     (WKV at head dim 16), the four dense variants, mixtral, llama4,
+     hymba, seamless and llava; a prompt longer than a window's ring
+     prefilled at its own length), and launch.serve's --smoke main (dcache,
+     and --arch rwkv6-7b) and launch.serve_llm's on the card, held to the
+     launch counts of the engines they return;
   5. training (freeing the card before and after): full-width
      dcache-agent-150m in bf16 through the twin's own train() of
      repro_torch.launch.serve_llm, 30 AdamW steps at 8 x 512 tokens; every
@@ -158,6 +171,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -337,14 +351,21 @@ def served_shapes():
     return sorted({c.d_model for c in cfgs}), sorted(heads)
 
 
-def small_dim_instances(ptxas):
-    """(kernel<type, d>, registers, spill line) of every attention instance
-    at head dim 16 or 32 in the ptxas log: flash's mma and fma kernels and
-    the decode and int8 decode kernels in bf16 and fp32."""
+# the ptxas log's mangled names of the attention instances at head dims 16
+# and 32 (flash's mma and fma kernels, decode and int8 decode, bf16 and
+# fp32) and of every WKV instance (prefill and decode, bf16 and fp32, head
+# dims 16, 32 and 64)
+SMALL_DIM_NAMES = (r"(flash_kernel_mma|flash_kernel_fma|decode_kernel|"
+                   r"decode_int8_kernel)I(13__nv_bfloat16|f)?Li(16|32)E")
+WKV_NAMES = r"(wkv_kernel_decode|wkv_kernel)I(13__nv_bfloat16|f)Li(16|32|64)E"
+
+
+def instances(ptxas, names):
+    """(kernel<type, d>, registers, spill line) of every instance whose
+    mangled name matches ``names`` in the ptxas log."""
     out, lines = [], ptxas.splitlines()
     for i, line in enumerate(lines):
-        hit = re.search(r"(flash_kernel_mma|flash_kernel_fma|decode_kernel|"
-                        r"decode_int8_kernel)I(13__nv_bfloat16|f)?Li(16|32)E", line)
+        hit = re.search(names, line)
         if "entry function" in line and hit:
             regs = next(re.search(r"Used (\d+) registers", x).group(1)
                         for x in lines[i + 1:i + 4] if "Used" in x)
@@ -364,9 +385,10 @@ def check_kernels(errs):
     for dtype in (torch.bfloat16, torch.float32):
         # every served path's d_model, at a decode step's 4 rows and a
         # prefill's 48 (exact length) and 64 (bucket); d 100 in bf16 is not a
-        # multiple of 8: the scalar path
+        # multiple of 8: the scalar path; d 16 is the reduced rwkv6's
+        # per-head norm (ln_x)
         for rows in (1, 4, 48, 64, 257):
-            for dm in sorted({64, 100} | set(widths)):
+            for dm in sorted({16, 64, 100} | set(widths)):
                 x = randn(gen, rows, dm, dtype=dtype)
                 g = randn(gen, dm, dtype=dtype)
                 compare("rmsnorm", f"rows={rows} d={dm}", ops.rmsnorm(x, g),
@@ -389,11 +411,17 @@ def check_kernels(errs):
             check_attention(gen, dtype, d, Hq, Hkv, errs)
         check_image_prefill(gen, dtype, errs)
         check_group16(gen, dtype, errs)
+        t0 = time.perf_counter()
+        check_group_tiles(gen, dtype, errs)
+        log(f"  group tiles {str(dtype)[6:]}: {time.perf_counter() - t0:.1f} s")
         for d in HEAD_DIMS:
             check_int8(gen, dtype, d, errs)
         check_misaligned(gen, dtype)
         check_refused(gen, dtype)
+    t0 = time.perf_counter()
     check_wkv(errs)
+    log(f"  wkv at head dims {sorted(hd for hd, _ in WKV_HEADS)}: "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def check_attention(gen, dtype, d, Hq, Hkv, errs):
@@ -507,6 +535,48 @@ def check_group16(gen, dtype, errs):
                 decode_attention_plain(q, kc, vc, p, window=48), dtype, errs)
 
 
+# (Hq, Hkv) past one block's heads: G 40 (two tiles of 20), G 64 (MQA, two
+# tiles of 32), G 40 over two KV heads, and G 41 (a last tile one head
+# short, whose spare warp stores nothing)
+GROUP_TILE_HEADS = ((40, 1), (64, 1), (80, 2), (41, 1))
+
+
+def check_group_tiles(gen, dtype, errs):
+    """Decode and int8 decode at groups larger than one block holds, cut
+    into group tiles (GROUP_TILE_HEADS at d 64 and 128; in fp32 also G 32
+    and 21 at d 96 and 128, past the 16 heads a block holds there): rings
+    of 100 and 512 slots (whole splits masked at pos 0 and 63), no mask
+    and a window of 48; each tile's merge stays inside its own cluster."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_int8_plain, decode_attention_plain, group_tiles,
+        max_heads)
+
+    B = 4
+    cases = [(d, Hq, Hkv) for d in (64, 128) for Hq, Hkv in GROUP_TILE_HEADS]
+    if dtype == torch.float32:
+        cases += [(d, Hq, 1) for d in (96, 128) for Hq in (32, 21)]
+    for d, Hq, Hkv in cases:
+        G = Hq // Hkv
+        tiles = group_tiles(G, max_heads(dtype, d))
+        tiles8 = group_tiles(G, max_heads(dtype, d, int8=True))
+        tag = f"d={d} G={G} Hkv={Hkv} tiles={tiles} int8 tiles={tiles8}"
+        for C, pos in ((100, [3, 50, 99, 250]), (512, [0, 63, 700, 2047])):
+            k = randn(gen, B, C, Hkv * d, dtype=dtype).view(B, C, Hkv, d).transpose(1, 2)
+            v = randn(gen, B, C, Hkv * d, dtype=dtype).view(B, C, Hkv, d).transpose(1, 2)
+            q = randn(gen, B, Hq, d, dtype=dtype)
+            p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            for mask, kw in (("none", {}), ("window48", {"window": 48})):
+                compare("decode_attention", f"{tag} C={C} {mask}",
+                        ops.decode_attention(q, k, v, p, **kw),
+                        decode_attention_plain(q, k, v, p, **kw), dtype, errs)
+            _, _, k8, ks = int8_ring(gen, B, C, Hkv, d, dtype)
+            _, _, v8, vs = int8_ring(gen, B, C, Hkv, d, dtype)
+            compare("decode_attention_int8", f"{tag} C={C} none",
+                    ops.decode_attention_int8(q, k8, v8, ks, vs, p),
+                    decode_attention_int8_plain(q, k8, v8, ks, vs, p), dtype, errs)
+
+
 def int8_ring(gen, B, C, Hkv, d, dtype):
     """A quantized ring as the kv_quant cache holds it: codes (B,C,KV*hd)
     int8 and scales (B,C,KV) from quantize_kv, and the kernel's
@@ -608,9 +678,8 @@ def check_misaligned(gen, dtype):
 
 def check_refused(gen, dtype):
     """On the card a head dim outside HEAD_DIMS (here 80) raises in each
-    attention wrapper before any launch, with no fallback; so does an fp32
-    decode at d 128 with G = 32 (the kernel's error code: fp32 at d 96 and
-    128 takes G <= 20)."""
+    attention wrapper before any launch, with no fallback; so does WKV at a
+    head dim it is not built for (48)."""
     from repro_torch.kernels import ops
 
     q = randn(gen, 1, 8, 16, 80, dtype=dtype).transpose(1, 2)
@@ -624,11 +693,10 @@ def check_refused(gen, dtype):
               lambda: ops.decode_attention(q[:, :, 0], k, k, p)),
              ("decode_attention_int8", ValueError, lambda: ops.decode_attention_int8(
                  q[:, :, 0].contiguous(), codes, codes, scales, scales, p))]
-    if dtype == torch.float32:
-        q32 = randn(gen, 1, 32, 128, dtype=dtype)
-        k32 = randn(gen, 1, 1, 64, 128, dtype=dtype)
-        calls.append(("decode_attention", RuntimeError,
-                      lambda: ops.decode_attention(q32, k32, k32, p)))
+    r = randn(gen, 1, 8, 2, 48, dtype=dtype)
+    w = torch.full((1, 8, 2, 48), 0.9, device="cuda")
+    calls.append(("wkv", ValueError,
+                  lambda: ops.wkv(r, r, r, w, randn(gen, 2, 48, dtype=dtype))))
     for name, exc, call in calls:
         try:
             call()
@@ -661,39 +729,46 @@ def same_state(case, s, sp):
         raise AssertionError(f"wkv {case}: state differs from wkv_plain")
 
 
-def check_wkv(errs):
-    """The WKV kernel against wkv_plain: prefill shapes from a zero state
-    (around the staged chunk of T steps: T - 1, T, T + 1, and S = 512),
-    B = 4 from a random state, and the decode shape from a random state,
-    into a new buffer and in place. y is compared in its dtype's tolerance;
-    the fp32 state must be bit-identical."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.rwkv_wkv import CHUNK_STEPS, wkv_plain
+# WKV's (head dim, heads) held in phase 2: rwkv6-7b's 64 heads of 64, the
+# reduced config's 4 of 16, and 8 of 32
+WKV_HEADS = ((64, 64), (16, 4), (32, 8))
 
+
+def check_wkv(errs):
+    """The WKV kernel against wkv_plain at each built head dim (WKV_HEADS):
+    prefill shapes from a zero state (around the staged chunk of T steps:
+    T - 1, T, T + 1, and S = 512), B = 4 from a random state, and the
+    decode shape from a random state, into a new buffer and in place. y is
+    compared in its dtype's tolerance; the fp32 state must be
+    bit-identical."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rwkv_wkv import CHUNK_STEPS, HEAD_DIMS, wkv_plain
+
+    assert sorted(hd for hd, _ in WKV_HEADS) == sorted(HEAD_DIMS)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    H, hd = 64, 64
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype)[6:]
-        T = CHUNK_STEPS[dtype]
-        for S in sorted({1, 7, 48, 64, 130, T - 1, T, T + 1, 512}):
-            r, k, v, w, u = wkv_inputs(gen, 1, S, H, hd, dtype)
-            y, s = ops.wkv(r, k, v, w, u)
-            yp, sp = wkv_plain(r, k, v, w, u)
-            compare("wkv", f"B=1 S={S} y", y, yp, dtype, errs)
-            same_state(f"B=1 S={S} {name}", s, sp)
-        for S in (48, 1):
-            r, k, v, w, u = wkv_inputs(gen, 4, S, H, hd, dtype)
-            s0 = torch.randn((4, H, hd, hd), generator=gen, device="cuda")
-            yp, sp = wkv_plain(r, k, v, w, u, s0)
-            y, s = ops.wkv(r, k, v, w, u, s0=s0)
-            compare("wkv", f"B=4 S={S} s0 y", y, yp, dtype, errs)
-            same_state(f"B=4 S={S} s0 {name}", s, sp)
-        # the decode step: S = 1, the state updated in place
-        state = s0.clone()
-        y, s = ops.wkv(r, k, v, w, u, s0=state, state_out=state)
-        assert s.data_ptr() == state.data_ptr()
-        compare("wkv", "B=4 S=1 s0 in place y", y, yp, dtype, errs)
-        same_state(f"B=4 S=1 s0 in place {name}", state, sp)
+    for hd, H in WKV_HEADS:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = f"{str(dtype)[6:]} hd={hd}"
+            T = CHUNK_STEPS[dtype]
+            for S in sorted({1, 7, 48, 64, 130, T - 1, T, T + 1, 512}):
+                r, k, v, w, u = wkv_inputs(gen, 1, S, H, hd, dtype)
+                y, s = ops.wkv(r, k, v, w, u)
+                yp, sp = wkv_plain(r, k, v, w, u)
+                compare("wkv", f"hd={hd} H={H} B=1 S={S} y", y, yp, dtype, errs)
+                same_state(f"B=1 S={S} {name}", s, sp)
+            for S in (48, 1):
+                r, k, v, w, u = wkv_inputs(gen, 4, S, H, hd, dtype)
+                s0 = torch.randn((4, H, hd, hd), generator=gen, device="cuda")
+                yp, sp = wkv_plain(r, k, v, w, u, s0)
+                y, s = ops.wkv(r, k, v, w, u, s0=s0)
+                compare("wkv", f"hd={hd} H={H} B=4 S={S} s0 y", y, yp, dtype, errs)
+                same_state(f"B=4 S={S} s0 {name}", s, sp)
+            # the decode step: S = 1, the state updated in place
+            state = s0.clone()
+            y, s = ops.wkv(r, k, v, w, u, s0=state, state_out=state)
+            assert s.data_ptr() == state.data_ptr()
+            compare("wkv", f"hd={hd} H={H} B=4 S=1 s0 in place y", y, yp, dtype, errs)
+            same_state(f"B=4 S=1 s0 in place {name}", state, sp)
 
 
 def time_decode(gen, B, Hq, Hkv, C, d, int8=False, pos=None):
@@ -704,9 +779,11 @@ def time_decode(gen, B, Hq, Hkv, C, d, int8=False, pos=None):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (
-        decode_attention_int8_plain, decode_attention_plain, split_geometry)
+        decode_attention_int8_plain, decode_attention_plain, group_tiles,
+        max_heads, split_geometry)
 
     dt, es = torch.bfloat16, 2
+    n_gt, gt = group_tiles(Hq // Hkv, max_heads(dt, d, int8=int8))
     q = randn(gen, B, Hq, d, dtype=dt)
     pos = torch.tensor(pos or [C + 3, C + 40, 2 * C + 5, 3 * C][:B],
                        dtype=torch.int32, device="cuda")
@@ -720,7 +797,8 @@ def time_decode(gen, B, Hq, Hkv, C, d, int8=False, pos=None):
         run = lambda: ops.decode_attention_int8(q, k, v, ks, vs, pos)  # noqa: E731
         plain = lambda: decode_attention_int8_plain(q, k, v, ks, vs, pos)  # noqa: E731
         shape = (f"q ({B},{Hq},{d}) bf16, int8 cache ({B},{C},{Hkv * d}) + bf16 "
-                 f"scales ({B},{C},{Hkv}), full ring; grid as decode_attention")
+                 f"scales ({B},{C},{Hkv}), full ring; grid ({n_split},"
+                 f"{Hkv * n_gt},{B}), {n_gt} group tile(s) of {gt} heads")
         lib_ms = lib_us = None
     else:
         kc = randn(gen, B, C, Hkv * d, dtype=dt)
@@ -731,8 +809,8 @@ def time_decode(gen, B, Hq, Hkv, C, d, int8=False, pos=None):
         run = lambda: ops.decode_attention(q, k, v, pos)  # noqa: E731
         plain = lambda: decode_attention_plain(q, k, v, pos)  # noqa: E731
         shape = (f"q ({B},{Hq},{d}), cache ({B},{C},{Hkv * d}) bf16, full ring; "
-                 f"grid ({n_split},{Hkv},{B}), clusters of {n_split}, {per} "
-                 f"slots each")
+                 f"grid ({n_split},{Hkv * n_gt},{B}), clusters of {n_split}, {per} "
+                 f"slots each, {n_gt} group tile(s) of {gt} heads")
         kk, vv, qq = k.contiguous(), v.contiguous(), q[:, :, None]
         mask = torch.ones((B, 1, 1, C), dtype=torch.bool, device="cuda")
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -821,6 +899,12 @@ def time_kernels():
     for key, Hq, Hkv, d in (("decode_attention_int8", 12, 4, 64),
                             ("decode_attention_int8_qwen3", 32, 8, 128)):
         rows[key] = time_decode(gen, 4, Hq, Hkv, 512, d, int8=True)
+    # groups cut into tiles (no served config has one): G 40 at d 128 and
+    # G 64 (MQA) at d 64, two tiles each, so the ring is read twice
+    rows["decode_attention_g40_d128"] = time_decode(gen, 4, 40, 1, 512, 128)
+    rows["decode_attention_g64_d64"] = time_decode(gen, 4, 64, 1, 512, 64)
+    rows["decode_attention_int8_g64_d64"] = time_decode(gen, 4, 64, 1, 512, 64,
+                                                        int8=True)
 
     # prefill attention at the commonest prompt bucket (B=1, S=64, causal)
     # and at the engine's max_len (S=512), at each served config's heads
@@ -849,9 +933,11 @@ def time_kernels():
                                                           int8=True)
 
     # rmsnorm at the rwkv6-7b decode step's shapes: norm1/norm2 (4,1,4096)
-    # and the per-head ln_x norm, 4*64 rows of 64
+    # and the per-head ln_x norm, 4*64 rows of 64; and the reduced rwkv6's
+    # ln_x norm, 4*4 rows of 16
     for key, shp in (("rmsnorm_d4096", (4, 1, 4096)),
-                     ("rmsnorm_heads64", (4, 1, 64, 64))):
+                     ("rmsnorm_heads64", (4, 1, 64, 64)),
+                     ("rmsnorm_heads16", (4, 1, 4, 16))):
         x = randn(gen, *shp, dtype=dt)
         g = randn(gen, shp[-1], dtype=dt)
         b, by = bound_ms((2 * x.numel() + g.numel()) * es, 4 * x.numel(),
@@ -868,11 +954,14 @@ def time_kernels():
             bound_ms=b, bound_by=by)
 
     # WKV at the rwkv6-7b decode step (B=4, S=1, the cache's state updated
-    # in place) and at a prefill (B=1, S=48, zero state). No single PyTorch
-    # call computes this recurrence, so there is no library time.
-    H, hd = 64, 64
-    for key, B, S in (("wkv", 4, 1), ("wkv_prefill", 1, 48),
-                      ("wkv_prefill_s512", 1, 512)):
+    # in place) and at a prefill (B=1, S=48, zero state); at head dim 16
+    # the reduced rwkv6's 4 heads (its smoke main's shapes), at 32 8 heads.
+    # No single PyTorch call computes this recurrence, so there is no
+    # library time.
+    for key, hd, H, B, S in (("wkv", 64, 64, 4, 1), ("wkv_prefill", 64, 64, 1, 48),
+                             ("wkv_prefill_s512", 64, 64, 1, 512),
+                             ("wkv_hd16", 16, 4, 4, 1), ("wkv_prefill_hd16", 16, 4, 1, 48),
+                             ("wkv_hd32", 32, 8, 4, 1), ("wkv_prefill_hd32", 32, 8, 1, 48)):
         r, k, v, w, u = wkv_inputs(gen, B, S, H, hd, dt)
         r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
         state = torch.randn((B, H, hd, hd), generator=gen, device="cuda") \
@@ -1415,6 +1504,13 @@ def cpu_vs_card(arch, tol=1e-3, kv_quant=False, reduced=False):
     return worst, near_ties, flips
 
 
+# phase 4's reduced configs (head dim 16, vocab 512): every family
+REDUCED_ARCHS = ("dcache-agent-150m", "rwkv6-7b", "qwen3-4b", "granite-3-2b",
+                 "phi3-mini-3.8b", "qwen1.5-32b", "mixtral-8x22b",
+                 "llama4-maverick-400b-a17b", "hymba-1.5b",
+                 "seamless-m4t-large-v2", "llava-next-34b")
+
+
 # ---------------------------------------------------------------------------
 # the paged KV cache on the card
 # ---------------------------------------------------------------------------
@@ -1783,10 +1879,120 @@ def prefill_32k(cfg, params, gen, m):
     return counts
 
 
+TRAIN4K_FIRST_ACCUM = 32   # micro-batches of 8 x 4,096: the first try
+TRAIN4K_PEAK_GIB = 70.0    # the peak a chosen accumulation may be predicted at
+
+
+def train_4k(cfg, params, m):
+    """train_4k (B 256 x S 4,096, 1 M tokens a step) on one card:
+    full-width dcache-agent-150m in bf16 through TrainLoop(...,
+    accum_steps=N) with no checkpointer, on a batch of input_specs(cfg,
+    TRAIN_4K)'s shapes with seeded tokens. First the peak memory of one
+    micro-batch of accum 32 (8 x 4,096: its forward and backward, from the
+    loop's own state: weights, moments, batch): the part above what it
+    starts from grows with the micro-batch, which predicts the smallest N
+    dividing 256 whose peak stays under 70 GiB. That N takes one warm-up
+    step and two timed ones (host clock around each TrainLoop step, which
+    ends on the loss; each step's peak memory). Then one micro-batch of
+    that N under the profiler: its device time, busy share and launch API
+    calls (a whole step's are N of them and AdamW's). Every loss and
+    grad_norm finite, the first loss within 0.5 of ln(vocab) (random
+    weights), and no kernel launched: training takes the eager path."""
+    from repro_torch.configs import TRAIN_4K, input_specs
+    from repro_torch.distributed import HeartbeatMonitor
+    from repro_torch.kernels import ops
+    from repro_torch.training import AdamWConfig, TrainLoop
+    from repro_torch.training.train_loop import loss_and_grads
+
+    B, S = TRAIN_4K.global_batch, TRAIN_4K.seq_len
+    specs = input_specs(cfg, TRAIN_4K)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    seq = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    batch = {"tokens": seq[:, :-1].contiguous(), "targets": seq[:, 1:].contiguous()}
+    del seq
+    assert ({k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
+            == {k: (tuple(v.shape), v.dtype) for k, v in specs.items()})
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    flops = train_flops(cfg, n_params, B, S)
+    before = ops.launch_counts()
+
+    def loop_for(n):
+        return TrainLoop(cfg, opt, params, itertools.repeat(batch),
+                         accum_steps=n, monitor=HeartbeatMonitor())
+
+    def peak_of(fn):
+        """(fn's result, the memory held before it, its peak)."""
+        free_card()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, base, torch.cuda.max_memory_allocated()
+
+    loop = loop_for(TRAIN4K_FIRST_ACCUM)
+    rows0 = B // TRAIN4K_FIRST_ACCUM
+    (grads, m0), base, peak0 = peak_of(lambda: loss_and_grads(
+        cfg, loop.params, {k: v[:rows0] for k, v in batch.items()}))
+    loss0 = float(m0["loss"])
+    del grads
+    per_row = (peak0 - base) / rows0
+    n = next(n for n in (1, 2, 4, 8, 16, 32, 64, 128, 256)
+             if base + per_row * (B // n) < TRAIN4K_PEAK_GIB * 2**30)
+    predicted = base + per_row * (B // n)
+    log(f"  train_4k: one micro-batch of accum {TRAIN4K_FIRST_ACCUM} ({rows0} "
+        f"x {S}) peaks at {peak0 / 2**30:.3f} GiB over {base / 2**30:.3f} GiB "
+        f"held before it (weights, moments, batch); predicted peak at accum "
+        f"{n}: {predicted / 2**30:.2f} GiB (the smallest accum under "
+        f"{TRAIN4K_PEAK_GIB:g} GiB)")
+    del loop
+    loop = loop_for(n)
+    steps = [peak_of(lambda: loop.run(loop.step_idx + 1)) for _ in range(3)]
+    steps_ms = [1e3 * t for t in loop.monitor.step_times]
+    rows = B // n
+    per_call, busy, wall_us, api = device_profile(
+        lambda: loss_and_grads(cfg, loop.params,
+                               {k: v[:rows] for k, v in batch.items()}),
+        1, "profile_dcache_train_4k_micro.txt", warmup=False)
+    losses = [loss0] + loop.history
+    gnorms = [x["grad_norm"] for x, _, _ in steps]
+    peak = max(p for _, _, p in steps)
+    assert ops.launch_counts() == before, "train_4k launched a hand-written kernel"
+    assert all(map(math.isfinite, losses + gnorms)), "a loss or grad_norm is not finite"
+    ln_v = math.log(cfg.vocab_size)
+    assert abs(loss0 - ln_v) <= 0.5, f"first loss {loss0:.3f}, ln(vocab) {ln_v:.3f}"
+    step_ms = statistics.median(steps_ms[1:])
+    tok_s = B * S / (step_ms / 1e3)
+    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    dev_ms = sum(per_call.values()) / 1e3
+    m["train_4k"] = dict(
+        B=B, S=S, accum=n, micro_batch=rows, first_accum=TRAIN4K_FIRST_ACCUM,
+        first_micro_peak_bytes=peak0, base_bytes=base,
+        predicted_peak_bytes=predicted, peak_bytes=peak,
+        step_peak_bytes=[p for _, _, p in steps], step_ms_all=steps_ms,
+        step_ms=step_ms, tok_s=tok_s, micro_busy=busy, micro_device_ms=dev_ms,
+        micro_wall_ms=wall_us / 1e3, micro_launch_api_calls=api, flops=flops,
+        mfu=mfu, losses=losses, grad_norms=gnorms)
+    top = sorted(per_call.items(), key=lambda kv: -kv[1])[:6]
+    log(f"  train_4k at accum {n} ({rows} x {S} micro-batches, bf16, remat "
+        f"{cfg.remat}): steps {', '.join(f'{t:.1f}' for t in steps_ms)} ms "
+        f"(warm-up, then two timed); {tok_s:.0f} tok/s; peak "
+        f"{peak / 2**30:.3f} GiB (predicted {predicted / 2**30:.2f}); model "
+        f"FLOPs {flops / 1e15:.3f} PFLOP/step, share of the bf16 dense peak "
+        f"(989 TFLOP/s) {100 * mfu:.2f}%; losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + f" (ln(vocab) {ln_v:.4f}); "
+        f"grad_norms " + ", ".join(f"{x:.4f}" for x in gnorms)
+        + f"; no kernel launched; one {rows} x {S} micro-batch profiled: host "
+        f"wall {wall_us / 1e3:.1f} ms, device {dev_ms:.1f} ms, busy "
+        f"{100 * busy:.1f}%, launch API calls {api:.0f}; top: "
+        + "; ".join(f"{k[:48]} {t / 1e3:.1f} ms" for k, t in top))
+
+
 def assigned_shapes():
-    """Full-width dcache-agent-150m in bf16 at the assigned shapes that run
-    on one card: decode_32k and prefill_32k. train_4k (1 M tokens a step)
-    is not run (ROADMAP), and long_500k is skipped by shape_applicable."""
+    """Full-width dcache-agent-150m in bf16 at the assigned shapes:
+    decode_32k, prefill_32k and train_4k on one card; long_500k is skipped
+    by shape_applicable."""
     from repro_torch.configs import SHAPES, get_config, shape_applicable
     from repro_torch.models.model import init_model
 
@@ -1795,14 +2001,16 @@ def assigned_shapes():
         skip = shape_applicable(cfg, shape)
         if skip:
             log(f"  {name}: skipped by shape_applicable: {skip}")
-    log("  train_4k: not run here (256 x 4,096 tokens a step: as 8 x 4,096 "
-        "micro-batches, 32 accumulated forward and backward passes a step)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_model(cfg, gen, "cuda")
     m = {}
     counts = decode_32k(cfg, params, gen, m)
     free_card()
     c = prefill_32k(cfg, params, gen, m)
+    free_card()
+    t0 = time.perf_counter()
+    train_4k(cfg, params, m)
+    m["train_4k"]["seconds"] = time.perf_counter() - t0
     return {k: counts[k] + c[k] for k in counts}, m
 
 
@@ -1995,8 +2203,9 @@ def train_full_width():
 
 
 def smoke_launchers():
-    """launch.serve's and launch.serve_llm's ``--smoke`` mains on the card
-    (the reduced configs, head dim 16), each held to the launch counts its
+    """launch.serve's ``--smoke`` main (reduced dcache-agent-150m, and
+    ``--arch rwkv6-7b``: WKV and rmsnorm at head dim 16) and
+    launch.serve_llm's on the card, each held to the launch counts its
     returned engine's prefills and steps imply (serve_llm's training
     launches none)."""
     from repro_torch.kernels import ops
@@ -2004,6 +2213,8 @@ def smoke_launchers():
 
     counts, m = {}, {}
     for name, argv, fn in (("launch.serve", ["--smoke"], serve.main),
+                           ("launch.serve rwkv6-7b", ["--smoke", "--arch", "rwkv6-7b"],
+                            serve.main),
                            ("launch.serve_llm", ["--smoke"], serve_llm.main)):
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2233,10 +2444,14 @@ def main() -> int:
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ptxas)
     assert all(a == b == "0" for a, b in spills), "a kernel instance spills"
     log(f"  {len(spills)} kernel instances built, none spills")
-    small = small_dim_instances(ptxas)
+    small = instances(ptxas, SMALL_DIM_NAMES)
     for name, regs, spill in small:
         log(f"  head dim {name}: {regs} registers, {spill}")
     assert len(small) == 12, f"expected 12 head-dim 16/32 instances, got {len(small)}"
+    wkv = instances(ptxas, WKV_NAMES)
+    for name, regs, spill in wkv:
+        log(f"  WKV head dim {name}: {regs} registers, {spill}")
+    assert len(wkv) == 12, f"expected 12 WKV instances, got {len(wkv)}"
 
     log("phase 2: kernels against their plain versions on the card")
     t2 = time.perf_counter()
@@ -2267,7 +2482,7 @@ def main() -> int:
     errs["decode_attention"] = max(errs["decode_attention"], paged["max_abs_err"])
     free_card()
 
-    log("assigned shapes: decode_32k and prefill_32k, full-width "
+    log("assigned shapes: decode_32k, prefill_32k and train_4k, full-width "
         "dcache-agent-150m in bf16")
     ta = time.perf_counter()
     c, shapes = assigned_shapes()
@@ -2276,6 +2491,7 @@ def main() -> int:
     for k, v in shapes.pop("errs").items():
         errs[k] = max(errs[k], v)
     phase_s["assigned shapes"] = time.perf_counter() - ta
+    phase_s["train_4k"] = shapes["train_4k"]["seconds"]
     free_card()
 
     log("bench: the serving bench's twin on the card")
@@ -2304,11 +2520,12 @@ def main() -> int:
                            cpu_vs_card_near_ties=ties,
                            cpu_vs_card_int8_code_flips=flips)
         free_card()
-    # the reduced configs (head dim 16) of the dense, MoE, hybrid, encdec and
-    # vlm families, then the launchers' --smoke mains on the card
+    # the reduced configs (head dim 16) of every family: the dense ones (the
+    # four variants too), rwkv6 (WKV at head dim 16), MoE (llama4 too: its
+    # reduced super-layer fits where full width does not), hybrid, encdec
+    # and vlm; then the launchers' --smoke mains on the card
     reduced = {}
-    for arch in ("dcache-agent-150m", "mixtral-8x22b", "hymba-1.5b",
-                 "seamless-m4t-large-v2", "llava-next-34b"):
+    for arch in REDUCED_ARCHS:
         log(f"phase 4: CPU vs card, fp32, {arch} reduced")
         t4 = time.perf_counter()
         worst, ties, _ = cpu_vs_card(arch, reduced=True)
@@ -2369,6 +2586,15 @@ def main() -> int:
         f"{100 * pf['flash_share']:.1f}% bound_ms={pf['bound_ms']:.2f} "
         f"flash_layer_ms={pf['flash_layer_ms']:.2f} sdpa_layer_ms="
         f"{pf['sdpa_layer_ms']:.2f} peak_GiB={pf['peak_bytes'] / 2**30:.2f}")
+    t4k = shapes["train_4k"]
+    log(f"card: {card} | train_4k dcache-agent-150m B={t4k['B']} S={t4k['S']} "
+        f"bf16 accum={t4k['accum']} ({t4k['micro_batch']} x {t4k['S']}): "
+        f"step_ms={t4k['step_ms']:.1f} tok_s={t4k['tok_s']:.0f} "
+        f"peak_GiB={t4k['peak_bytes'] / 2**30:.3f} "
+        f"model_flop_share={100 * t4k['mfu']:.2f}% of 989 TFLOP/s "
+        f"micro_batch_busy={100 * t4k['micro_busy']:.1f}%; accum "
+        f"{t4k['first_accum']}: micro_batch_peak_GiB="
+        f"{t4k['first_micro_peak_bytes'] / 2**30:.3f}")
     log(f"card: {card} | bench {' '.join(bench['rows'][1:])} "
         f"{bench['kernel_row']}")
     log(f"card: {card} | dcache-agent-150m serving x{BENCH_RUNS} in one process "

@@ -20,8 +20,13 @@
 //
 // Design: split the ring across a thread-block cluster and merge in
 // distributed shared memory, in one launch.
-// - Grid (n_split, Hkv, B), with a cluster of the n_split blocks of one
-//   (b, kv head); n_split = min(8, C), 8 being the largest portable cluster.
+// - Grid (n_split, Hkv * n_gt, B), with a cluster of the n_split blocks of
+//   one (b, kv head, group tile); n_split = min(8, C), 8 being the largest
+//   portable cluster. A group of G query heads is cut into n_gt tiles of at
+//   most max_threads / 32 heads (32; 16 for fp32 at d 96 and 128), as even
+//   as they come (group_tiles): any G runs, MQA included. n_gt is 1 up to
+//   G 32, so every served config launches as before; a group of n_gt tiles
+//   reads the ring n_gt times, once for each tile.
 //   Block `split` owns the contiguous slots [split*per, min(C, split*per +
 //   per)), per = ceil(C / n_split): 64 slots (16 KB of bf16 K and V) at
 //   C = 512, so 128 blocks instead of 16. The grid depends on C only; pos
@@ -34,7 +39,7 @@
 //   its slots (__syncthreads_or): a tile with no visible slot is neither
 //   loaded nor computed. A block with none writes the neutral partial
 //   m = -1e30, l = 0, acc = 0. At the start of a request most blocks skip.
-// - One warp per query head of the GQA group (G <= 32): lane j scores
+// - One warp per query head of the group tile: lane j scores
 //   slots j and j + 32 of the tile (q, which travels with the first tile's
 //   copies, and K as 16-byte vectors from shared memory, q by broadcast;
 //   the 16-byte row padding keeps the K reads free of bank conflicts); the
@@ -144,6 +149,20 @@ __device__ __forceinline__ bool slot_visible(int j, int p_now, int C, int window
   return ok;
 }
 
+// The group's head a tile's warp i computes: g0 + i, or the group's last
+// head for a warp past the end of the last (shorter) tile, which computes
+// on a real head and stores nothing.
+__device__ __forceinline__ int head_of(int g0, int i, int G) {
+  return min(g0 + i, G - 1);
+}
+
+// The output row of head g of kv head h's group, or null past the group.
+template <typename T>
+__device__ __forceinline__ T* out_row(T* out, int b, int h, int Hkv, int G,
+                                      int g, int D) {
+  return g < G ? out + ((int64_t)b * Hkv * G + (int64_t)h * G + g) * D : nullptr;
+}
+
 // block-uniform: does the tile of slots [j0, min(hi, j0 + kTile)) hold a
 // visible slot? (one barrier)
 __device__ __forceinline__ bool tile_visible(int j0, int hi, int p_now, int C,
@@ -159,8 +178,9 @@ __device__ __forceinline__ bool tile_visible(int j0, int hi, int p_now, int C,
 // Every block of the cluster has started (each arrived on the cluster
 // barrier at entry): push this warp's partial (acc over the lane's columns
 // Cols<D>::col, m, l) into rank 0's shared memory `part` ([n_split][G][D +
-// 2]); cluster.sync() releases it there, and no block reads another's
-// after. Rank 0 then merges the partials of head g into orow.
+// 2], G the tile's heads); cluster.sync() releases it there, and no block
+// reads another's after. Rank 0 then merges the partials of head g into
+// orow (null for a warp past the last tile's heads: it stores nothing).
 template <typename T, int D>
 __device__ __forceinline__ void merge_partials(float* part, int split, int G,
                                                int g, int lane, float m, float l,
@@ -178,7 +198,7 @@ __device__ __forceinline__ void merge_partials(float* part, int split, int G,
     mine[D + 1] = l;
   }
   cluster.sync();
-  if (split != 0) return;
+  if (split != 0 || orow == nullptr) return;
   // partial split*G + g; a fixed trip count lets every load issue
   const int n_part = gridDim.x;
   float mj[kMaxSplit];
@@ -212,12 +232,13 @@ __device__ __forceinline__ void merge_partials(float* part, int split, int G,
   }
 }
 
-// Threads a block may have, one warp per query head: G <= 32, except fp32
-// at d 96 and 128, G <= 20 (which its merge buffer needs at d 128 anyway).
-// Under a 1,024-thread bound ptxas kept those two instances to 32
-// registers and spilled; under 640 they take 47-48 with no spill.
+// Threads a block may have, one warp per query head of its group tile: 32
+// heads, except fp32 at d 96 and 128, 16. Under a 1,024-thread bound ptxas
+// kept those two instances to 32 registers and spilled; under 640 they
+// took 47-48, and the d 96 one spilled 8 bytes once the group tiles' indices
+// were added; under 512 they take 45 (d 96) and 40 (d 128) with no spill.
 template <typename T, int D>
-constexpr int max_threads() { return sizeof(T) == 4 && D > 64 ? 640 : 1024; }
+constexpr int max_threads() { return sizeof(T) == 4 && D > 64 ? 512 : 1024; }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(max_threads<T, D>())
@@ -234,15 +255,18 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kSL = kTile / 32;           // slots of a tile per lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* KV = reinterpret_cast<T*>(smem_raw);   // [2 stages][K, V][kTile][kRow]
-  T* Qs = KV + 4 * kTile * kRow;            // [G][D]
-  // [n_split][G][D + 2]: every block's partials (acc[D], m, l), pushed
+  const int gt = blockDim.x / 32;           // heads of a group tile
+  T* Qs = KV + 4 * kTile * kRow;            // [gt][D]
+  // [n_split][gt][D + 2]: every block's partials (acc[D], m, l), pushed
   // into the cluster's first block; the others leave theirs unused
-  float* part = reinterpret_cast<float*>(Qs + G * D);
+  float* part = reinterpret_cast<float*>(Qs + gt * D);
 
   cluster_arrive_relaxed();   // this block has started (see the merge)
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int n_gt = gridDim.y / Hkv, h = blockIdx.y / n_gt;
+  const int g0 = (blockIdx.y % n_gt) * gt;  // the tile's first head
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int g = tid / 32, lane = tid % 32;  // warp g: head g of the group
+  const int g = tid / 32, lane = tid % 32;  // warp g: head g0 + g of the group
   const int p_now = pos[b];
   const int lo = split * per, hi = min(C, lo + per);
   const int n_tiles = hi > lo ? (hi - lo + kTile - 1) / kTile : 0;
@@ -274,10 +298,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < Cl::kN; ++i) acc[i] = 0.f;
   int t = next_tile(0);
-  if (t < n_tiles) {   // q of the group travels with the first tile
+  if (t < n_tiles) {   // q of the tile travels with the first tile
     issue(t, 0);
-    for (int i = tid; i < G * kChunks; i += nthreads)
-      cp_async16(Qs + i * kVec, q + b * qb + (h * G + i / kChunks) * qh
+    for (int i = tid; i < gt * kChunks; i += nthreads)
+      cp_async16(Qs + i * kVec, q + b * qb + (h * G + head_of(g0, i / kChunks, G)) * qh
                                     + (i % kChunks) * kVec, true);
   }
   cp_async_commit();
@@ -358,8 +382,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   Cl::join_halves(acc);
-  merge_partials<T, D>(part, split, G, g, lane, m, l, acc,
-                       out + ((int64_t)b * Hkv * G + (int64_t)h * G + g) * D);
+  merge_partials<T, D>(part, split, gt, g, lane, m, l, acc,
+                       out_row(out, b, h, Hkv, G, g0 + g, D));
 }
 
 // A 16-byte chunk of codes is four 32-bit words; code e of word w, sign
@@ -379,10 +403,14 @@ __device__ __forceinline__ float dequant(int code, float s) {
 template <int D>
 __host__ __device__ constexpr int int8_row() { return (D / 16) % 2 ? D + 32 : D + 16; }
 
+// Threads an int8 block may have: 32 heads a group tile at every d.
+constexpr int kInt8Threads = 1024;
+
 // The int8 variant: k/v are int8 codes, ks/vs the per-slot-per-kv-head
-// scales in T (strides in elements). One warp per query head, as above.
+// scales in T (strides in elements). One warp per query head of the group
+// tile, as above.
 template <typename T, int D>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kInt8Threads)
 decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                    const int8_t* __restrict__ v, const T* __restrict__ ks,
                    const T* __restrict__ vs, const int* __restrict__ pos,
@@ -399,11 +427,14 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int8_t* KV = reinterpret_cast<int8_t*>(smem_raw);  // [2][K, V][kTile][kRow]
   float* SC = reinterpret_cast<float*>(KV + 4 * kTile * kRow);  // [2][K, V][kTile]
-  T* Qs = reinterpret_cast<T*>(SC + 4 * kTile);                 // [G][D]
-  float* part = reinterpret_cast<float*>(Qs + G * D);  // [n_split][G][D + 2]
+  const int gt = blockDim.x / 32;                               // heads of a group tile
+  T* Qs = reinterpret_cast<T*>(SC + 4 * kTile);                 // [gt][D]
+  float* part = reinterpret_cast<float*>(Qs + gt * D);  // [n_split][gt][D + 2]
 
   cluster_arrive_relaxed();   // this block has started (see the merge)
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int n_gt = gridDim.y / Hkv, h = blockIdx.y / n_gt;
+  const int g0 = (blockIdx.y % n_gt) * gt;  // the tile's first head
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int g = tid / 32, lane = tid % 32;
   const int p_now = pos[b];
@@ -435,7 +466,7 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
     }
   };
   // this thread's scales of a tile (slots tid and tid + nthreads; two cover
-  // the tile when G = 1), 0 past the range
+  // the tile when a tile holds one head), 0 past the range
   float ksr[2], vsr[2];
   auto load_scales = [&](int t) {
     const int j0 = lo + t * kTile;
@@ -463,11 +494,12 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < Cl::kN; ++i) acc[i] = 0.f;
   int t = next_tile(0);
-  if (t < n_tiles) {   // q of the group travels with the first tile
+  if (t < n_tiles) {   // q of the tile travels with the first tile
     issue(t, 0);
-    for (int i = tid; i < G * (D / kVec); i += nthreads)
-      cp_async16(Qs + i * kVec, q + b * qb + (h * G + i / (D / kVec)) * qh
-                                    + (i % (D / kVec)) * kVec, true);
+    for (int i = tid; i < gt * (D / kVec); i += nthreads)
+      cp_async16(Qs + i * kVec,
+                 q + b * qb + (h * G + head_of(g0, i / (D / kVec), G)) * qh
+                   + (i % (D / kVec)) * kVec, true);
     load_scales(t);
     store_scales(0);
   }
@@ -567,8 +599,8 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
     stage ^= 1;
   }
   Cl::join_halves(acc);
-  merge_partials<T, D>(part, split, G, g, lane, m, l, acc,
-                       out + ((int64_t)b * Hkv * G + (int64_t)h * G + g) * D);
+  merge_partials<T, D>(part, split, gt, g, lane, m, l, acc,
+                       out_row(out, b, h, Hkv, G, g0 + g, D));
 }
 
 // n_split and slots per split for a ring of C slots. This decides the
@@ -579,14 +611,25 @@ void split_geometry(int C, int* n_split, int* per) {
   *per = (C + *n_split - 1) / *n_split;
 }
 
-// Launch `go(cfg, per)` on the grid (n_split, Hkv, B) with clusters of the
-// n_split blocks of one (b, kv head) and `smem` bytes of dynamic shared
-// memory for `kern`.
+// A group of G query heads in n_gt tiles of at most max_heads heads, as
+// even as they come: tile i takes heads [i * gt, min(G, (i + 1) * gt)), and
+// none is empty ((n_gt - 1) * gt <= (n_gt - 1) * max_heads < G). This
+// decides the launch; kernels/decode_attention.py:group_tiles mirrors it
+// for labels and tests only, and must be changed with it.
+void group_tiles(int G, int max_heads, int* n_gt, int* gt) {
+  *n_gt = (G + max_heads - 1) / max_heads;
+  *gt = (G + *n_gt - 1) / *n_gt;
+}
+
+// Launch `go(cfg, per)` on the grid (n_split, Hkv * n_gt, B) with clusters
+// of the n_split blocks of one (b, kv head, group tile), gt warps a block,
+// and `smem` bytes of dynamic shared memory for `kern`.
 template <typename Go>
-int launch_clusters(const void* kern, size_t smem, int B, int Hkv, int C, int G,
-                    cudaStream_t s, Go&& go) {
-  // the merge buffer grows with G * D: fp32 at d 128 fits G <= 20, bf16
-  // and int8 every G <= 32; a larger one is refused here
+int launch_clusters(const void* kern, size_t smem, int B, int Hkv, int C,
+                    int n_gt, int gt, cudaStream_t s, Go&& go) {
+  // the merge buffer grows with gt * D: every instance's largest tile fits
+  // (fp32 d 128 at 16 heads, bf16 and int8 at 32); a larger one is refused
+  // here
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -594,8 +637,8 @@ int launch_clusters(const void* kern, size_t smem, int B, int Hkv, int C, int G,
   int n_split, per;
   split_geometry(C, &n_split, &per);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_split, Hkv, B);
-  cfg.blockDim = dim3(32 * G);
+  cfg.gridDim = dim3(n_split, Hkv * n_gt, B);
+  cfg.blockDim = dim3(32 * gt);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
@@ -614,13 +657,14 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* pos, void* out,
            int B, int Hkv, int C, int G, const int64_t* st, int window,
            int chunk, float scale, cudaStream_t s) {
-  if (32 * G > max_threads<T, D>()) return (int)cudaErrorInvalidValue;
+  int n_gt, gt;
+  group_tiles(G, max_threads<T, D>() / 32, &n_gt, &gt);
   constexpr int kRow = D + 16 / sizeof(T);
   const size_t smem =
-      sizeof(T) * (4 * kTile * kRow + G * D) + sizeof(float) * kMaxSplit * G * (D + 2);
+      sizeof(T) * (4 * kTile * kRow + gt * D) + sizeof(float) * kMaxSplit * gt * (D + 2);
   auto kern = decode_kernel<T, D>;
   return launch_clusters(
-      (const void*)kern, smem, B, Hkv, C, G, s,
+      (const void*)kern, smem, B, Hkv, C, n_gt, gt, s,
       [&](const cudaLaunchConfig_t& cfg, int per) {
         return cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k,
                                   (const T*)v, pos, (T*)out, Hkv, C, G, per,
@@ -634,12 +678,14 @@ int launch_int8(const void* q, const void* k, const void* v, const void* ks,
                 const void* vs, const int* pos, void* out, int B, int Hkv, int C,
                 int G, const int64_t* st, int window, int chunk, float scale,
                 cudaStream_t s) {
+  int n_gt, gt;
+  group_tiles(G, kInt8Threads / 32, &n_gt, &gt);
   constexpr int kRow = int8_row<D>();
   const size_t smem = 4 * kTile * kRow + sizeof(float) * 4 * kTile
-                      + sizeof(T) * G * D + sizeof(float) * kMaxSplit * G * (D + 2);
+                      + sizeof(T) * gt * D + sizeof(float) * kMaxSplit * gt * (D + 2);
   auto kern = decode_int8_kernel<T, D>;
   return launch_clusters(
-      (const void*)kern, smem, B, Hkv, C, G, s,
+      (const void*)kern, smem, B, Hkv, C, n_gt, gt, s,
       [&](const cudaLaunchConfig_t& cfg, int per) {
         return cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const int8_t*)k,
                                   (const int8_t*)v, (const T*)ks, (const T*)vs,
@@ -665,7 +711,7 @@ extern "C" int repro_decode_attention(const void* q, const void* k, const void* 
                                       int window, int chunk, float scale,
                                       int dtype, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (G < 1 || G > 32 || C < 1) return (int)cudaErrorInvalidValue;
+  if (G < 1 || C < 1) return (int)cudaErrorInvalidValue;
   const int64_t st[8] = {q_b, q_h, k_b, k_h, k_c, v_b, v_h, v_c};
   cudaStream_t s = (cudaStream_t)stream;
   return with_head_dim(d, [&](auto D) {
@@ -690,7 +736,7 @@ extern "C" int repro_decode_attention_int8(
     int64_t ks_h, int64_t ks_c, int64_t vs_b, int64_t vs_h, int64_t vs_c,
     int window, int chunk, float scale, int dtype, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (G < 1 || G > 32 || C < 1) return (int)cudaErrorInvalidValue;
+  if (G < 1 || C < 1) return (int)cudaErrorInvalidValue;
   const int64_t st[14] = {q_b, q_h, k_b, k_h, k_c, v_b, v_h, v_c,
                           ks_b, ks_h, ks_c, vs_b, vs_h, vs_c};
   cudaStream_t s = (cudaStream_t)stream;

@@ -7,10 +7,13 @@ Replaces the TPU kernel ``repro/kernels/decode_attention.py``
 but at the serving shape the call reads 2 MB, so latency is what limits it:
 how many loads are in flight and on how many SMs. The kernel splits the
 ring into ``n_split`` ranges (``split_geometry``), one block each in a
-thread-block cluster per (b, kv head); each block brings its range in with
-16-byte ``cp.async`` copies, skips ranges the masks hide, and computes a
-partial (m, l, acc); the cluster's first block merges the partials from
-distributed shared memory, all in one launch. See the source for the design.
+thread-block cluster per (b, kv head, group tile); each block brings its
+range in with 16-byte ``cp.async`` copies, skips ranges the masks hide, and
+computes a partial (m, l, acc) for each query head of its tile, one warp a
+head; the cluster's first block merges the partials from distributed shared
+memory, all in one launch. A group of any size runs: it is cut into tiles
+of at most ``max_heads`` heads (``group_tiles``), and a group of T tiles
+reads the ring T times. See the source for the design.
 
 ``decode_attention_int8`` is the same kernel over the int8 ring of
 ``cfg.kv_quant``: it reads the codes (half the bytes of bf16) and their
@@ -28,7 +31,6 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = _build.ATTENTION_HEAD_DIMS
-MAX_GROUP = 32
 MAX_SPLIT = 8      # the kernel's cluster size: the largest portable one
 
 
@@ -42,6 +44,25 @@ def split_geometry(C: int) -> Tuple[int, int]:
         raise ValueError(f"decode_attention: ring of {C} slots")
     n_split = min(MAX_SPLIT, C)
     return n_split, -(-C // n_split)
+
+
+def max_heads(dtype: torch.dtype, d: int, int8: bool = False) -> int:
+    """The most query heads one block (a group tile, one warp a head) of
+    the kernel holds: 32, but 16 for the fp32 kernel at head dims 96 and
+    128 (its thread bound, under which those instances do not spill)."""
+    return 16 if dtype == torch.float32 and d > 64 and not int8 else 32
+
+
+def group_tiles(G: int, max_heads: int) -> Tuple[int, int]:
+    """The kernel's cut of a group of G query heads into tiles of at most
+    ``max_heads``, as even as they come: (tiles, heads per tile); the last
+    tile may hold fewer, none is empty. The C entry points decide it
+    (``group_tiles`` in the source); this mirrors it for labels and tests
+    only, and must be changed with it."""
+    if G < 1:
+        raise ValueError(f"decode_attention: a group of {G} heads")
+    n = -(-G // max_heads)
+    return n, -(-G // n)
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -78,7 +99,7 @@ def _check_ring(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: bad k/v shapes {tuple(k.shape)}, "
                          f"{tuple(v.shape)} for q {tuple(q.shape)}")
     _, Hkv, C, _ = k.shape
-    if Hq % Hkv or Hq // Hkv > MAX_GROUP:
+    if Hq % Hkv:
         raise ValueError(f"{name}: Hq={Hq} over Hkv={Hkv}")
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
@@ -97,10 +118,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous last dimension, base pointers and strides in multiples of 16
     bytes; pos: (B,) int32. Token t lives in slot
     t % C and the current token's K/V must already be at slot pos % C.
-    CPU tensors take the plain version, CUDA tensors the kernel; on the card
-    a head dim outside ``HEAD_DIMS`` raises, and so does fp32 at d 96 or 128
-    with G > 20 (the kernel's thread bound there; at d 128 its merge buffer
-    could not be larger either)."""
+    Any group G = Hq / Hkv. CPU tensors take the plain version, CUDA tensors
+    the kernel; on the card a head dim outside ``HEAD_DIMS`` raises."""
     if _build.use_plain("decode_attention", q, k, v, pos):
         return decode_attention_plain(q, k, v, pos, window=window, chunk=chunk)
     code = _build.dtype_code("decode_attention", q, k, v)

@@ -8,12 +8,13 @@ Replaces the TPU kernel ``repro/kernels/rwkv_wkv.py`` (``wkv`` /
 
 At a decode step bytes bound it on the H100 (the fp32 state is read and
 written once); at prefill the sequential time loop's latency does. The
-kernel splits each (b, h) over ``COL_BLOCKS`` blocks of columns and each
-column over ``ROW_LANES`` lanes of rows, keeps the state in registers, and
-stages r/k/w/v ``CHUNK_STEPS`` time steps at a time in shared memory, one
-chunk in flight while the previous one is computed. A decode step (S = 1)
-takes a kernel of its own that loads straight into registers; see the
-source.
+kernel is built at head dims ``HEAD_DIMS``. It splits each (b, h) over
+``COL_BLOCKS[hd]`` blocks of 16 columns and each column over
+``ROW_LANES[hd]`` lanes of rows, keeps the state in registers, and stages
+r/k/w/v ``CHUNK_STEPS`` time steps at a time in shared memory, one chunk in
+flight while the previous one is computed. A decode step (S = 1) takes a
+kernel of its own that loads straight into registers, min(32, hd) columns
+a warp; see the source.
 
 The interface is the model's (``repro.models.rwkv.wkv_scan``), not the TPU
 kernel's: r/k/v/w are (B,S,H,hd), of which the TPU kernel's (B,H,S,hd) is a
@@ -27,10 +28,14 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (64,)  # the registry's WKV head dims; each one is built and checked
-# The kernel's partition (csrc/rwkv_wkv.cu decides it; the tests replay it):
-COL_BLOCKS = 4     # blocks per (b, h), 16 state columns each
-ROW_LANES = 4      # lanes per column, 16 state rows each
+# the head dims the kernel is built for: 64 (rwkv6-7b), 16 (its reduced
+# config), 32; each one is built and checked
+HEAD_DIMS = (16, 32, 64)
+# The kernel's partition per head dim (csrc/rwkv_wkv.cu decides it; the
+# tests replay it): blocks per (b, h) at a prefill, 16 state columns each;
+# lanes per column, hd // 4 state rows each
+COL_BLOCKS = {hd: hd // 16 for hd in HEAD_DIMS}
+ROW_LANES = {hd: 4 for hd in HEAD_DIMS}
 # time steps staged at a time at a prefill (a decode step, S = 1, stages none)
 CHUNK_STEPS = {torch.bfloat16: 32, torch.float32: 16}
 

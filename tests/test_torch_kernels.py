@@ -17,10 +17,12 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels.decode_attention import (NEG_INF,
                                                   decode_attention_int8_plain,
                                                   decode_attention_plain,
+                                                  group_tiles, max_heads,
                                                   split_geometry)
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.rmsnorm import MAX_LANES, geometry, rmsnorm_plain
 from repro_torch.kernels.rwkv_wkv import wkv_plain
+from test_torch_dense_variants import NoLibrary, card_route  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -96,6 +98,9 @@ def _pos(seed, B, C):
     # head dims 16 (the reduced configs') and 32 at G 1, 2 and 4
     (2, 4, 4, 128, 16), (3, 4, 2, 256, 16), (2, 8, 2, 64, 16),
     (2, 4, 2, 128, 32),
+    # groups past one kernel block's 32 heads: G 40, G 64 (MQA), G 40 over
+    # two KV heads at d 128
+    (2, 40, 1, 128, 64), (1, 64, 1, 128, 64), (1, 80, 2, 128, 128),
 ])
 @pytest.mark.parametrize("mask", ["none", "window", "chunk"])
 def test_decode_plain_vs_pallas(B, Hq, Hkv, C, d, mask):
@@ -149,11 +154,12 @@ def test_rmsnorm_plain_ragged_vs_ref(rows, d, dtype):
 
 
 @pytest.mark.parametrize("shape", [(4, 1, 64), (4, 1, 768), (4, 1, 4096),
-                                   (4, 1, 64, 64)])
+                                   (4, 1, 64, 64), (4, 1, 4, 16)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_plain_vs_pallas_served_widths(shape, dtype):
     """The served widths: d 64 (the rwkv per-head norm), 768 (dense), 4096
-    (rwkv), at a decode step's 4 rows."""
+    (rwkv), 16 (the reduced rwkv6's per-head norm), at a decode step's 4
+    rows."""
     (jx, tx), (jg, tg) = arrays(11, shape, (shape[-1],), dtype=dtype)
     close(rmsnorm_plain(tx, tg), jops.rmsnorm(jx, jg), dtype)
 
@@ -327,6 +333,77 @@ def test_decode_split_geometry_refuses_empty_ring():
         split_geometry(0)
 
 
+@pytest.mark.parametrize("G", [1, 3, 7, 16, 17, 20, 21, 32, 33, 40, 41, 64, 97, 128])
+@pytest.mark.parametrize("cap", [32, 16])
+def test_decode_group_tiles(G, cap):
+    """A group is cut into ceil(G / cap) tiles of at most cap heads, as even
+    as they come: one tile up to cap (so every served group launches as
+    before), none empty, every head in exactly one."""
+    n, gt = group_tiles(G, cap)
+    assert n == -(-G // cap) and gt <= cap
+    assert (n - 1) * gt < G <= n * gt
+    heads = [g for t in range(n) for g in range(t * gt, min(G, (t + 1) * gt))]
+    assert heads == list(range(G))
+    if G <= cap:
+        assert (n, gt) == (1, G)
+
+
+def test_decode_max_heads():
+    """32 heads a block, but 16 for the fp32 kernel at d 96 and 128 (its
+    512-thread bound); the int8 kernel takes 32 at every head dim."""
+    assert {d: max_heads(torch.bfloat16, d) for d in (16, 32, 64, 96, 128)} \
+        == dict.fromkeys((16, 32, 64, 96, 128), 32)
+    assert {d: max_heads(torch.float32, d) for d in (16, 32, 64, 96, 128)} \
+        == {16: 32, 32: 32, 64: 32, 96: 16, 128: 16}
+    assert all(max_heads(dt, d, int8=True) == 32
+               for dt in (torch.float32, torch.bfloat16) for d in (64, 96, 128))
+
+
+def _group_tile_replay(q, k, v, pos, cap, **kw):
+    """The kernel's cut of each kv head's group in plain torch: tile i's
+    warps take heads i * gt + w, a warp past the group's end the group's
+    last head (it computes and stores nothing); each tile attends on its
+    own, and each real head's row is written once. Returns the output and
+    how often each (b, head) row was written."""
+    B, Hq, d = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    n, gt = group_tiles(G, cap)
+    out = torch.full_like(q, float("nan"))
+    writes = torch.zeros((B, Hq), dtype=torch.int64)
+    for h in range(Hkv):
+        for t in range(n):
+            g0 = t * gt
+            heads = [min(g0 + w, G - 1) for w in range(gt)]
+            qt = q[:, [h * G + g for g in heads]]
+            ot = decode_attention_plain(qt, k[:, h:h + 1], v[:, h:h + 1], pos, **kw)
+            for w in range(gt):
+                if g0 + w < G:
+                    out[:, h * G + g0 + w] = ot[:, w]
+                    writes[:, h * G + g0 + w] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(40, 1), (41, 1), (64, 1), (80, 2), (21, 1)])
+@pytest.mark.parametrize("cap", [32, 16])
+@pytest.mark.parametrize("mask", ["none", "window"])
+def test_decode_group_tile_replay(Hq, Hkv, cap, mask):
+    """The tiles together give the plain version over the whole group and
+    JAX's reference, fp32 within 3e-5, with every head written once."""
+    kw = {"none": {}, "window": dict(window=48)}[mask]
+    B, C, d = 2, 100, 64
+    (jq, tq), (jk, tk), (jv, tv) = arrays(31, (B, Hq, d), (B, Hkv, C, d),
+                                          (B, Hkv, C, d))
+    p = _pos(32, B, C)
+    out, writes = _group_tile_replay(tq, tk, tv, torch.from_numpy(p), cap, **kw)
+    assert (writes == 1).all()
+    close(out, jref.ref_decode_attention(jq, jk, jv, jnp.asarray(p), **kw),
+          "float32")
+    np.testing.assert_allclose(
+        out.numpy(), decode_attention_plain(tq, tk, tv, torch.from_numpy(p),
+                                            **kw).numpy(), **tol("float32"))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_check_aligned(dtype):
     """The model's layouts pass; a view offset by one element, or with a
@@ -352,6 +429,21 @@ def test_decode_int8_plain_small_head_dims(B, Hq, Hkv, C, d, mask, dtype):
     """The int8 plain version at head dims 16 and 32 against its
     dequantize-then-attend reference: JAX's quantize_kv codes and scales,
     dequantize_kv, then the JAX reference attention."""
+    _int8_vs_reference(B, Hq, Hkv, C, d, mask, dtype)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,C,d", [
+    (2, 40, 1, 100, 64), (1, 64, 1, 128, 64), (1, 80, 2, 64, 128),
+])
+@pytest.mark.parametrize("mask", ["none", "window"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_int8_plain_large_groups(B, Hq, Hkv, C, d, mask, dtype):
+    """The int8 plain version at groups the kernel cuts into tiles (G 40,
+    64) against the same dequantize-then-attend reference."""
+    _int8_vs_reference(B, Hq, Hkv, C, d, mask, dtype)
+
+
+def _int8_vs_reference(B, Hq, Hkv, C, d, mask, dtype):
     from repro.models import attention as jattn
 
     kw = {"none": {}, "window": dict(window=8), "chunk": dict(chunk=8)}[mask]
@@ -374,3 +466,24 @@ def test_decode_int8_plain_small_head_dims(B, Hq, Hkv, C, d, mask, dtype):
                                       **kw)
     assert out.dtype == tdt
     close(out, gold, dtype)
+
+
+@pytest.mark.parametrize("d,Hq", [(64, 40), (64, 64), (128, 32), (96, 21),
+                                  (128, 41)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_wrappers_take_any_group_on_the_card_route(card_route, d, Hq,
+                                                          dtype):
+    """On the card route (the device check bypassed, the library replaced
+    by a sentinel) both decode wrappers pass any group G = Hq / Hkv,
+    MQA included, to the kernel: no group is refused in Python."""
+    q = torch.zeros((2, Hq, d), dtype=dtype)
+    k = torch.zeros((2, 1, 64, d), dtype=dtype)
+    codes = torch.zeros((2, 1, 64, d), dtype=torch.int8)
+    sc = torch.ones((2, 1, 64), dtype=dtype)
+    pos = torch.zeros(2, dtype=torch.int32)
+    tops.reset_launch_counts()
+    with pytest.raises(NoLibrary):
+        tops.decode_attention(q, k, k, pos)
+    with pytest.raises(NoLibrary):
+        tops.decode_attention_int8(q, codes, codes, sc, sc, pos)
+    assert not any(tops.launch_counts().values())

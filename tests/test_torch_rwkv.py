@@ -33,10 +33,11 @@ from repro.models import rwkv as jrwkv
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import alloc_cache, get_config
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.rwkv_wkv import (COL_BLOCKS, ROW_LANES,
-                                          wkv_plain)
+from repro_torch.kernels.rwkv_wkv import (CHUNK_STEPS, COL_BLOCKS, HEAD_DIMS,
+                                          ROW_LANES, wkv_plain)
 from repro_torch.models import model as tmodel
 from repro_torch.models import rwkv as trwkv
+from test_torch_dense_variants import NoLibrary, card_route  # noqa: F401
 
 F32 = dict(atol=1e-4, rtol=1e-4)
 BF16 = dict(atol=3e-2, rtol=3e-2)
@@ -110,7 +111,8 @@ def t(a):
     return torch.tensor(a)
 
 
-@pytest.mark.parametrize("B,H,S,hd", [(2, 3, 128, 64), (1, 2, 64, 32)])
+@pytest.mark.parametrize("B,H,S,hd", [(2, 3, 128, 64), (1, 2, 64, 32),
+                                      (2, 4, 64, 16)])
 @pytest.mark.parametrize("chunk", [16, 64])
 def test_wkv_plain_vs_pallas(B, H, S, hd, chunk):
     """tests/test_kernels.py's WKV sweep; the Pallas kernel in interpret mode."""
@@ -164,22 +166,25 @@ def test_wkv_wrapper_on_cpu_takes_plain_and_updates_state_in_place():
 
 
 def _wkv_partition(r, k, v, w, u, s0, T):
-    """csrc/rwkv_wkv.cu's schedule in plain torch (fp32). Each of COL_BLOCKS
-    blocks owns 16 state columns; each of ROW_LANES lanes of a column keeps
-    16 state rows. Time runs over staged chunks of T steps, the last one
-    ragged. Each lane sums its partial of y_t over its rows in order, and
-    y_t = (p0 + p1) + (p2 + p3), as the two xor shuffles add them. The state
-    update is wkv_plain's, element by element. The decode kernel (S = 1)
-    cuts the columns otherwise (2 blocks of 32) but keeps the row lanes and
-    the order of y's sum, so this replays it too."""
+    """csrc/rwkv_wkv.cu's schedule in plain torch (fp32) at r's head dim.
+    Each of COL_BLOCKS[hd] blocks owns 16 state columns; each of
+    ROW_LANES[hd] = 4 lanes of a column keeps hd // 4 state rows. Time runs
+    over staged chunks of T steps, the last one ragged. Each lane sums its
+    partial of y_t over its rows in order, and y_t = (p0 + p1) + (p2 + p3),
+    as they are added from shared memory. The state update is wkv_plain's,
+    element by element. The decode kernel (S = 1) cuts the columns
+    otherwise (min(32, hd) a warp) but keeps the row lanes and the order
+    of y's sum, so this replays it too."""
     B, S, H, hd = r.shape
-    nc, nr = hd // COL_BLOCKS, hd // ROW_LANES
+    n_blocks, n_lanes = COL_BLOCKS[hd], ROW_LANES[hd]
+    assert n_lanes == 4, "y's sum below adds 4 partials"
+    nc, nr = hd // n_blocks, hd // n_lanes
     state = torch.zeros((B, H, hd, hd)) if s0 is None else s0.clone()
     y = torch.full((B, S, H, hd), float("nan"))
     uf = u.float()[None]
-    for cb in range(COL_BLOCKS):
+    for cb in range(n_blocks):
         cols = slice(cb * nc, (cb + 1) * nc)
-        lanes = [slice(q * nr, (q + 1) * nr) for q in range(ROW_LANES)]
+        lanes = [slice(q * nr, (q + 1) * nr) for q in range(n_lanes)]
         st = [state[:, :, rows, cols].clone() for rows in lanes]
         for t0 in range(0, S, T):
             rc, kc, wc = (x[:, t0:t0 + T].float() for x in (r, k, w))
@@ -203,12 +208,14 @@ def _wkv_partition(r, k, v, w, u, s0, T):
 @pytest.mark.parametrize("T,S", [(32, 1), (32, 31), (32, 33), (32, 37),
                                  (16, 1), (16, 15), (16, 17), (16, 37)])
 @pytest.mark.parametrize("s0", ["zero", "random"])
-def test_wkv_partition_replay(T, S, s0):
-    """The kernel's partition (4 column blocks, 4 row lanes a column, chunks
-    of T = 32 (bf16) or 16 (fp32) with a ragged tail) against wkv_plain
-    (y within 3e-5, the state bit for bit) and against JAX: the Pallas
-    kernel in interpret mode from a zero state, wkv_scan from a random one."""
-    B, H, hd = 2, 2, 64
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_wkv_partition_replay(T, S, s0, hd):
+    """The kernel's partition at head dim hd (hd // 16 column blocks of 16,
+    4 row lanes a column, chunks of T = 32 (bf16) or 16 (fp32) with a
+    ragged tail) against wkv_plain (y within 3e-5, the state bit for bit)
+    and against JAX: the Pallas kernel in interpret mode from a zero state,
+    wkv_scan from a random one."""
+    B, H = 2, 2
     r, k, v, w, u = wkv_inputs(5, B, S, H, hd)
     s0_np = (None if s0 == "zero" else
              np.random.default_rng(6).normal(0, 1, (B, H, hd, hd)).astype(np.float32))
@@ -227,6 +234,64 @@ def test_wkv_partition_replay(T, S, s0):
                                 jnp.asarray(s0_np), chunk=8)
     np.testing.assert_allclose(f32(y), f32(yg), **tol)
     np.testing.assert_allclose(f32(s), f32(sg), **tol)
+
+
+def test_wkv_head_dims_and_partition():
+    """The kernel is built at head dims 16 (the reduced configs'), 32 and 64
+    (rwkv6-7b's); its partition per head dim is the one the replay above
+    holds: hd // 16 column blocks of 16 at a prefill, 4 row lanes of hd // 4
+    rows."""
+    assert HEAD_DIMS == (16, 32, 64)
+    assert COL_BLOCKS == {16: 1, 32: 2, 64: 4}
+    assert ROW_LANES == {16: 4, 32: 4, 64: 4}
+    assert CHUNK_STEPS == {torch.bfloat16: 32, torch.float32: 16}
+    for arch in ("rwkv6-7b",):
+        assert get_config(arch).ssm.head_dim in HEAD_DIMS
+        assert get_config(arch).reduced().ssm.head_dim in HEAD_DIMS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_wrapper_takes_built_head_dims_on_the_card_route(card_route, dtype):
+    """On the card route (the device check bypassed, the library replaced
+    by a sentinel) every built head dim passes the wrapper's checks and
+    reaches the library; head dim 48 raises before it, launching nothing."""
+    tops.reset_launch_counts()
+    for hd in HEAD_DIMS + (48,):
+        r = torch.zeros((2, 3, 4, hd), dtype=dtype)
+        w = torch.full((2, 3, 4, hd), 0.9)
+        call = lambda: tops.wkv(r, r, r, w, torch.zeros((4, hd), dtype=dtype))  # noqa: E731
+        with pytest.raises(ValueError if hd == 48 else NoLibrary):
+            call()
+    assert tops.launch_counts()["wkv"] == 0
+
+
+def test_smoke_launcher_serves_rwkv6_as_the_jax_engine(capsys):
+    """``launch.serve --smoke --arch rwkv6-7b --device cpu``: the reduced
+    rwkv6 (head dim 16, vocab 512, the config's bf16) serves its requests,
+    and the JAX engine on the launcher's own weights, carried across in the
+    JAX layout, decodes the same greedy tokens."""
+    from repro.serving import ServingEngine as JaxServingEngine
+    from repro_torch.bridge import to_jax_layout
+    from repro_torch.launch import serve
+
+    eng = serve.main(["--smoke", "--arch", ARCH, "--device", "cpu",
+                      "--requests", "3", "--max-new", "8"])
+    out = capsys.readouterr().out
+    assert out.count(" -> ") == 3 and "'finished': 3" in out
+    assert eng.cfg.ssm.head_dim == 16 and eng.cfg.vocab_size == 512
+    # unrolled: bf16 rounded op by op, as the port rounds it (module doc)
+    jcfg = dataclasses.replace(jax_get_config(ARCH).reduced(), vocab_size=512,
+                               unroll=True)
+    assert jcfg.dtype == eng.cfg.dtype
+    jp = jax.tree.map(lambda a: jnp.asarray(a.float().numpy(), jcfg.jnp_dtype),
+                      to_jax_layout(eng.params, eng.cfg))
+    jeng = JaxServingEngine(jcfg, jp, max_batch=eng.max_batch,
+                            max_len=eng.max_len)
+    jreqs = [jeng.submit(serve.PROMPTS[i], max_new_tokens=8) for i in range(3)]
+    jeng.run_until_done()
+    tout = [r.out_ids for r in sorted(eng.finished, key=lambda r: r.rid)]
+    assert tout == [r.out_ids for r in jreqs]
+    assert all(len(o) == 8 for o in tout)
 
 
 # ---------------------------------------------------------------------------
