@@ -109,6 +109,21 @@ Phases (any failure exits non-zero; nothing is caught):
      configuration (head dim 16) with its rows and exact launch counts, phase
      3's dcache workload 5 times in this process after a warm-up (median,
      min and max of tok/s, mean TTFT and decode step), bench_kernels' row;
+  agent: the paper's own system on the card: full-width dcache-agent-150m
+     in bf16 (ServingEngine(max_batch=4, max_len=512), 32 new tokens a
+     decision) behind TorchLLM as LLMController's decision model for every
+     read and update decision of 8 tasks of Table I's workload
+     (build_tasks(8, reuse_rate=0.8, seed=1)), composed by hand from
+     build_runtime's parts with SimLLM driving the runner, beside the same
+     tasks without the cache; reports the decisions, each prompt's bytes
+     and the bytes the engine kept, the median and maximum decision wall
+     ms (synchronized), the parse fallbacks (an untrained byte-level model
+     rarely writes JSON: the controller then takes the programmatic plan)
+     and degraded calls, the cache's hits and the sim-clock avg_time_s of
+     both runs and their ratio; the phase's launch counts exactly those of
+     the engine's prefills and steps; then the port's Tables I-III
+     (table1(n=40), table2(n=30), table3(n=30)) on the card's host against
+     the digests that lock the reference;
   4. for the first three paths, qwen3-4b, phi3-mini-3.8b, qwen1.5-32b,
      mixtral-8x22b (MoE, G 6), hymba-1.5b (attention and Mamba heads),
      seamless-m4t-large-v2 (64 frames a prompt) and llava-next-34b (16
@@ -127,7 +142,10 @@ Phases (any failure exits non-zero; nothing is caught):
      vocab 512) of every family the same way (REDUCED_ARCHS: dcache, rwkv6
      (WKV at head dim 16), the four dense variants, mixtral, llama4,
      hymba, seamless and llava; a prompt longer than a window's ring
-     prefilled at its own length), and launch.serve's --smoke main (dcache,
+     prefilled at its own length); the reduced dcache in fp32 as the cache
+     controller's decision model for 2 tasks on the CPU and on the card
+     (the same completions and TaskTraces, the card's launch counts
+     exact); and launch.serve's --smoke main (dcache,
      and --arch rwkv6-7b) and launch.serve_llm's on the card, held to the
      launch counts of the engines they return;
   5. training (freeing the card before and after): full-width
@@ -171,6 +189,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import itertools
 import json
 import math
@@ -2065,6 +2084,195 @@ def bench_phase():
 
 
 # ---------------------------------------------------------------------------
+# agent: the paper's system, its cache decisions made by the served model
+# ---------------------------------------------------------------------------
+
+AGENT_TASKS = 8
+AGENT_NEW_TOKENS = 32
+# the paper tables at the sizes tests/test_tables_determinism.py locks
+TABLE_DIGESTS = {"table1": (40, "4a16fa741c2ec0e3"),
+                 "table2": (30, "c843260e9b690452"),
+                 "table3": (30, "4932ee22ebf094a7")}
+
+
+class DecisionLog:
+    """The controller's decision model with each call recorded: the
+    prompt's bytes, the prompt bytes the engine kept (``submit`` keeps the
+    last ``max_len // 2`` tokens), the wall ms with the card synchronized
+    before and after, and the completion."""
+
+    def __init__(self, llm, engine):
+        self.llm, self.engine, self.calls = llm, engine, []
+
+    def complete(self, prompt):
+        eng = self.engine
+        kept = eng.tok.encode(prompt)[-(eng.max_len // 2):]
+        sync = eng.device.type == "cuda"
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.llm.complete(prompt)
+        if sync:
+            torch.cuda.synchronize()
+        self.calls.append(dict(
+            prompt_bytes=len(prompt.encode()), kept_bytes=sum(i < 256 for i in kept),
+            ms=1e3 * (time.perf_counter() - t0), completion=out))
+        return out
+
+
+def run_agent(decision_llm, use_cache, n_tasks, seed=0):
+    """``n_tasks`` of Table I's workload (reuse 0.8, task seed 1) through
+    build_runtime's parts composed by hand: SimLLM (gpt-4-turbo, CoT,
+    few-shot) drives the runner, ``decision_llm`` makes every read and
+    update decision of the cached run (the run without the cache plans
+    programmatically, as build_runtime's does). Returns the traces, the
+    report, the controller and the cache."""
+    from repro_torch.agent import AgentRunner, Profile, SimLLM, build_tasks
+    from repro_torch.agent.geollm.datastore import GeoDataStore
+    from repro_torch.agent.geollm.evaluator import evaluate
+    from repro_torch.agent.geollm.geotools import make_geo_tools
+    from repro_torch.agent.geollm.simclock import SimClock
+    from repro_torch.core.cache import DataCache
+    from repro_torch.core.controller import make_controller
+    from repro_torch.core.policies import make_policy
+    from repro_torch.core.tools import ToolRegistry, make_cache_tools
+
+    clock = SimClock()
+    store = GeoDataStore(clock)
+    cache = DataCache(5, clock=clock.now)
+    impl = "llm" if use_cache else "python"
+    controller = make_controller(cache, make_policy("lru"), llm=decision_llm,
+                                 read_impl=impl, update_impl=impl)
+    registry = ToolRegistry(make_cache_tools(cache, store, clock)
+                            + make_geo_tools(clock))
+    runner = AgentRunner(registry, controller,
+                         SimLLM(Profile("gpt-4-turbo", "cot", True), seed=seed),
+                         clock, store, use_cache=use_cache)
+    tasks = build_tasks(n_tasks, reuse_rate=0.8, seed=1, store=store)
+    traces = [runner.run_task(t) for t in tasks]
+    return traces, evaluate(tasks, traces, cache.stats), controller, cache
+
+
+def same_traces(a, b):
+    """TaskTraces equal field by field, answers by the workload's own
+    structural equality (arrays and frames compared whole)."""
+    from repro_torch.agent.geollm.workload import answers_equal
+
+    assert len(a) == len(b), "trace counts differ"
+    for x, y in zip(a, b):
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            ok = answers_equal(u, v) if f.name == "answers" else u == v
+            assert ok, f"task {x.tid}: {f.name} differs ({u!r} vs {v!r})"
+
+
+def agent_phase():
+    """Full-width dcache-agent-150m in bf16 on the card as LLMController's
+    decision model for AGENT_TASKS tasks, beside the same tasks without the
+    cache; the launch counts of the whole phase against the engine's
+    prefills and steps; then Tables I-III on the card's host against their
+    digests."""
+    from repro_torch.agent import TorchLLM
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import tables
+    from repro_torch.models.model import init_model
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config("dcache-agent-150m")
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    ServingEngine(cfg, params, max_batch=4, max_len=512,
+                  device="cuda").generate_text(PROMPTS[0], max_new_tokens=4)
+    torch.cuda.synchronize()
+    eng = ServingEngine(cfg, params, max_batch=4, max_len=512, device="cuda")
+    llm = DecisionLog(TorchLLM(eng, max_new_tokens=AGENT_NEW_TOKENS), eng)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    off = run_agent(llm, False, AGENT_TASKS)
+    assert not llm.calls, "the run without the cache asked the model"
+    on = run_agent(llm, True, AGENT_TASKS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    expected = expected_launches(cfg, eng.prefills, eng.steps)
+    calls = llm.calls
+    _, rep_off, _, _ = off
+    traces, rep_on, ctrl, cache = on
+    st = cache.stats
+    ms = [c["ms"] for c in calls]
+    m = dict(decisions=len(calls), prefills=eng.prefills, steps=eng.steps,
+             prompt_bytes=[c["prompt_bytes"] for c in calls],
+             kept_bytes=[c["kept_bytes"] for c in calls],
+             decision_ms=ms, decision_ms_median=statistics.median(ms),
+             decision_ms_max=max(ms), parse_fallbacks=ctrl.parse_fallbacks,
+             degraded=ctrl.degraded, graded=st.llm_total_decisions,
+             graded_correct=st.llm_correct_decisions, hits=st.hits,
+             misses=st.misses, evictions=st.evictions,
+             avg_time_s_off=rep_off.avg_time_s, avg_time_s_on=rep_on.avg_time_s,
+             sim_ratio=rep_off.avg_time_s / rep_on.avg_time_s,
+             success_off=rep_off.success_rate, success_on=rep_on.success_rate,
+             completions=[c["completion"] for c in calls][:4],
+             launches=counts, wall_s=wall)
+    log(f"  {len(calls)} decisions made by the model over {AGENT_TASKS} tasks "
+        f"(prefills={eng.prefills} decode_steps={eng.steps}); prompt bytes "
+        f"{m['prompt_bytes']}; kept by the engine {m['kept_bytes']}")
+    log(f"  decision wall ms (synchronized): median {m['decision_ms_median']:.2f} "
+        f"max {m['decision_ms_max']:.2f}; parse_fallbacks={ctrl.parse_fallbacks} "
+        f"degraded={ctrl.degraded} graded={st.llm_total_decisions} "
+        f"(correct {st.llm_correct_decisions}); cache hits={st.hits} "
+        f"misses={st.misses} evictions={st.evictions}; first completions "
+        f"{m['completions']!r}")
+    log(f"  sim-clock avg_time_s without the cache {rep_off.avg_time_s:.4f}, "
+        f"with it {rep_on.avg_time_s:.4f}, ratio {m['sim_ratio']:.4f}; "
+        f"launches={counts} expected={expected}")
+    assert calls and len(calls) == eng.prefills, "a decision did not reach the engine"
+    assert ctrl.degraded == 0 and len(traces) == AGENT_TASKS
+    assert all(math.isfinite(r.avg_time_s) and r.avg_time_s > 0
+               for r in (rep_off, rep_on))
+    assert counts == expected, "agent phase launch counts differ"
+    t1 = time.perf_counter()
+    for name, (n, digest) in TABLE_DIGESTS.items():
+        rows = getattr(tables, name)(n=n)
+        got = hashlib.sha256(repr(rows).encode()).hexdigest()[:16]
+        log(f"  {name}(n={n}) digest {got} (locked {digest}); {rows[-1]}")
+        assert got == digest, f"{name} digest differs on the card's host"
+    m["tables_s"] = time.perf_counter() - t1
+    return counts, m
+
+
+def agent_cpu_vs_card():
+    """The reduced dcache-agent-150m (head dim 16, vocab 512) in fp32 as
+    the decision model for 2 tasks, on the CPU and on the card from the
+    same weights: the same completions and the same TaskTraces; the card
+    run's launch counts against its engine's prefills and steps."""
+    from repro_torch.agent import TorchLLM
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_model
+    from repro_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(get_config("dcache-agent-150m").reduced(),
+                              vocab_size=512, dtype="float32")
+    gpu_params = init_model(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    out = {}
+    for device, params in (("cpu", tree_to(gpu_params, "cpu")), ("cuda", gpu_params)):
+        eng = ServingEngine(cfg, params, max_batch=4, max_len=128, device=device)
+        llm = DecisionLog(TorchLLM(eng, max_new_tokens=8), eng)
+        ops.reset_launch_counts()
+        traces = run_agent(llm, True, 2)[0]
+        out[device] = (llm.calls, traces, ops.launch_counts(),
+                       expected_launches(cfg, eng.prefills, eng.steps))
+    (c_calls, c_traces, _, _), (g_calls, g_traces, counts, expected) = out["cpu"], out["cuda"]
+    assert counts == expected, "agent cpu vs card launch counts differ"
+    assert [c["completion"] for c in g_calls] == [c["completion"] for c in c_calls], \
+        "the card's completions differ from the CPU's"
+    same_traces(c_traces, g_traces)
+    log(f"  agent cpu vs card fp32 (reduced, 2 tasks): {len(g_calls)} decisions, "
+        f"the same completions and TaskTraces; card launches={counts}")
+    return dict(decisions=len(g_calls), launches=counts)
+
+
+# ---------------------------------------------------------------------------
 # phase 5: training, then serving the trained weights
 # ---------------------------------------------------------------------------
 
@@ -2502,6 +2710,15 @@ def main() -> int:
     phase_s["bench"] = time.perf_counter() - tb
     free_card()
 
+    log("agent: the paper's cache decisions made by full-width "
+        "dcache-agent-150m on the card")
+    tg = time.perf_counter()
+    c, agent = agent_phase()
+    for k, v in c.items():
+        counts[k] = counts.get(k, 0) + v
+    phase_s["agent"] = time.perf_counter() - tg
+    free_card()
+
     # phase 4 covers each kernel instance's head dim and group: d 64 (dense,
     # kv_quant), the WKV path, d 128 at G 4 with qk_norm, d 96 at G 1, d 128
     # at G 1 with non-zero QKV biases, the MoE block at d 128 G 6, and the
@@ -2532,6 +2749,12 @@ def main() -> int:
         phase_s["4 " + arch + " reduced"] = time.perf_counter() - t4
         reduced[arch] = dict(max_logit_diff=worst, near_ties=ties)
         free_card()
+    log("phase 4: CPU vs card, fp32, the reduced dcache as the cache "
+        "controller's decision model")
+    t4 = time.perf_counter()
+    agent["cpu_vs_card"] = agent_cpu_vs_card()
+    phase_s["4 agent"] = time.perf_counter() - t4
+    free_card()
     log("phase 4: the launchers' --smoke mains on the card")
     t4 = time.perf_counter()
     c, smoke = smoke_launchers()
@@ -2595,6 +2818,15 @@ def main() -> int:
         f"micro_batch_busy={100 * t4k['micro_busy']:.1f}%; accum "
         f"{t4k['first_accum']}: micro_batch_peak_GiB="
         f"{t4k['first_micro_peak_bytes'] / 2**30:.3f}")
+    log(f"card: {card} | agent dcache-agent-150m bf16, {AGENT_TASKS} tasks: "
+        f"decisions={agent['decisions']} decision_ms median="
+        f"{agent['decision_ms_median']:.2f} max={agent['decision_ms_max']:.2f} "
+        f"kept_bytes max={max(agent['kept_bytes'])} of prompt_bytes max="
+        f"{max(agent['prompt_bytes'])} parse_fallbacks={agent['parse_fallbacks']} "
+        f"degraded={agent['degraded']} hits={agent['hits']} "
+        f"sim avg_time_s off={agent['avg_time_s_off']:.4f} "
+        f"on={agent['avg_time_s_on']:.4f} ratio={agent['sim_ratio']:.4f} "
+        f"launches={agent['launches']}")
     log(f"card: {card} | bench {' '.join(bench['rows'][1:])} "
         f"{bench['kernel_row']}")
     log(f"card: {card} | dcache-agent-150m serving x{BENCH_RUNS} in one process "
@@ -2633,7 +2865,7 @@ def main() -> int:
                    "src/repro/kernels/rwkv_wkv.py:56")}
     # launches: summed over phase 3's served paths, the paged phase, the
     # assigned shapes (decode_32k, prefill_32k), the bench's served run, the
-    # two --smoke mains and the serving of the trained and of the restored
+    # agent phase's decisions, the two --smoke mains and the serving of the trained and of the restored
     # weights; each counted from zero and held to the counts its own
     # prefills and steps imply (expected_launches)
     # dims_held: the head dims (row widths for rmsnorm) each kernel was held
@@ -2648,7 +2880,7 @@ def main() -> int:
                 "library_ms": timing[n]["library_ms"],
                 "dims_held": sorted(HELD[n])} for n in src]
     result = {"card": card, "serving": serve, "paged": paged,
-              "assigned_shapes": shapes, "bench": bench,
+              "assigned_shapes": shapes, "bench": bench, "agent": agent,
               "reduced_cpu_vs_card": reduced, "smoke_launchers": smoke,
               "training": training, "checkpoint": ckpt, "timing": timing,
               "max_abs_err": errs, "max_abs_err_by_dim": HELD, "kernels": kernels,

@@ -1,0 +1,530 @@
+"""Cross-session cache admission (TinyLFU-style) for the shared pod cache.
+
+The concurrent engine installs *every* loaded key into its owning pod; under
+contention many sessions stream one-shot keys through the cache and churn
+out each other's hot residents (at 16 sessions / 4 pods the bench shows
+~27% local hits). Admission fixes that: before a loaded key may evict a
+resident, an :class:`AdmissionPolicy` compares the candidate against the
+eviction victim and either **admits** it (evict + install) or **bypasses**
+the cache — the value still streams through to the requesting session, but
+no resident is evicted (bypass-on-miss semantics).
+
+Frequency evidence comes from a :class:`FrequencySketch` — a vectorized
+count-min sketch (numpy) shared across *all* sessions, aged by periodically
+halving every counter on the simulation clock so stale popularity decays
+(the TinyLFU reset). Every logical cache access touches the sketch, so an
+entry's estimate approximates its recent global popularity regardless of
+which session produced the traffic.
+
+Mirroring ``repro_torch.core.policies``, each admission policy carries both a
+programmatic ``admit()`` and a natural-language ``describe()``; the
+GPT-driven path (:class:`LLMAdmission`) renders ``describe()`` plus the
+sketch estimates into a prompt and lets the LLM make the call — exactly how
+the paper's prompted eviction works, extended to admission.
+
+Batched hot path: touches are *deferred* — ``touch``/``touch_many``
+append interned key ids to a buffer, and the buffer is flushed (applied in
+exact arrival order, preserving conservative-update semantics bit-for-bit)
+only at a read boundary: an ``estimate``/``estimate_many``/``top_k`` call, an
+aging epoch, or buffer overflow. Between boundaries the per-access cost is an
+append plus one dict lookup instead of a blake2 hash and three numpy
+small-array ops, which is what lets the concurrent engine scale to 256
+sessions. Counters live in a flat Python list (scalar reads beat numpy
+fancy-indexing at depth=4); ``table`` materialises the numpy view on demand
+and aging/top-k remain vectorized.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+DEFAULT_WIDTH = 1024
+DEFAULT_DEPTH = 4
+DEFAULT_AGE_PERIOD_S = 180.0
+FLUSH_BUFFER_MAX = 8192      # flush the deferred-touch buffer at this size
+
+
+class FrequencySketch:
+    """Count-min sketch with conservative update and time-driven aging.
+
+    ``touch(key, now)`` records one access; ``estimate(key)`` returns the
+    (over-)estimate of the key's access count since roughly the last aging
+    window. Aging halves every counter each ``age_period_s`` simulated
+    seconds — callers pass ``now`` from their sim clock (the concurrent
+    engine passes session clocks, which only execute at the global-minimum
+    time, so touches arrive in nondecreasing order) or construct with a
+    ``clock`` callable. Hashing is blake2b so estimates are deterministic
+    across runs and machines.
+
+    Touches are buffered and applied lazily (see module docstring): every
+    read (``estimate*``/``top_k``) and every aging boundary flushes the
+    buffer first, in arrival order, so observable estimates are exactly
+    those of the old touch-immediately implementation.
+    """
+
+    def __init__(self, width: int = DEFAULT_WIDTH, depth: int = DEFAULT_DEPTH,
+                 age_period_s: float = DEFAULT_AGE_PERIOD_S, clock=None):
+        assert width > 0 and depth > 0
+        self.width = width
+        self.depth = depth
+        self.age_period_s = age_period_s
+        self._clock = clock
+        # authoritative counters: flat Python ints (row * width + col).
+        # Scalar list ops are ~10x cheaper than numpy fancy-indexing for
+        # depth-sized reads; aging round-trips through numpy (vectorized).
+        self._flat: List[int] = [0] * (depth * width)
+        self._rows = np.arange(depth)
+        # interning: key -> dense id; per-id flat cell indices (tuple for the
+        # flush loop) + a lazily rebuilt (n_keys, depth) matrix for top_k
+        self._key_id: Dict[str, int] = {}
+        self._id_key: List[str] = []
+        self._id_cells: List[Tuple[int, ...]] = []
+        self._idx_matrix: Optional[np.ndarray] = None
+        self._buf: List[int] = []
+        self._last_age = 0.0
+        self.touches = 0
+        self.ages = 0
+        self.flushes = 0
+
+    # -- interning / hashing --------------------------------------------------
+    def _intern(self, key: str) -> int:
+        kid = self._key_id.get(key)
+        if kid is None:
+            h = hashlib.blake2b(key.encode(),
+                                digest_size=8 * self.depth).digest()
+            cols = np.frombuffer(h, dtype=np.uint64) % np.uint64(self.width)
+            kid = len(self._id_key)
+            self._key_id[key] = kid
+            self._id_key.append(key)
+            self._id_cells.append(tuple(
+                int(r) * self.width + int(c) for r, c in zip(self._rows, cols)))
+            self._idx_matrix = None      # stale; rebuilt on next top_k
+        return kid
+
+    def _indices(self, key: str) -> np.ndarray:
+        """Per-row column indices of ``key`` (kept for tests/diagnostics)."""
+        cells = self._id_cells[self._intern(key)]
+        return np.array([c % self.width for c in cells], dtype=np.int64)
+
+    # -- deferred-touch buffer ------------------------------------------------
+    def flush(self) -> None:
+        """Apply buffered touches in exact arrival order (conservative
+        update: only the minimum cells increment — order-exact, so estimates
+        match the touch-immediately implementation bit-for-bit)."""
+        buf = self._buf
+        if not buf:
+            return
+        flat = self._flat
+        cells_of = self._id_cells
+        for kid in buf:
+            cells = cells_of[kid]
+            vals = [flat[c] for c in cells]
+            lo = min(vals)
+            for c, v in zip(cells, vals):
+                if v == lo:
+                    flat[c] = v + 1
+        buf.clear()
+        self.flushes += 1
+
+    def _maybe_age(self, now: Optional[float]) -> None:
+        if now is None:
+            now = self._clock() if self._clock is not None else None
+        if now is None or self.age_period_s <= 0:
+            return
+        while now - self._last_age >= self.age_period_s:
+            self.age()
+            self._last_age += self.age_period_s
+
+    def age(self) -> None:
+        """TinyLFU reset: halve every counter (vectorized). Flushes first —
+        buffered touches arrived before this aging boundary."""
+        self.flush()
+        arr = np.asarray(self._flat, dtype=np.uint64) >> 1
+        self._flat = arr.tolist()
+        self.ages += 1
+
+    def touch(self, key: str, now: Optional[float] = None) -> None:
+        """Record one access (deferred; see ``flush``)."""
+        self._maybe_age(now)
+        self._buf.append(self._intern(key))
+        self.touches += 1
+        if len(self._buf) >= FLUSH_BUFFER_MAX:
+            self.flush()
+
+    def touch_many(self, keys: Sequence[str],
+                   now: Optional[float] = None) -> None:
+        """Record one access per key, in order (single aging check — the
+        batch shares one timestamp, like a read plan's key walk)."""
+        self._maybe_age(now)
+        intern = self._intern
+        self._buf.extend(intern(k) for k in keys)
+        self.touches += len(keys)
+        if len(self._buf) >= FLUSH_BUFFER_MAX:
+            self.flush()
+
+    # -- reads (flush boundaries) ---------------------------------------------
+    def _estimate_interned(self, kid: int) -> int:
+        flat = self._flat
+        return min(flat[c] for c in self._id_cells[kid])
+
+    def estimate(self, key: str) -> int:
+        self.flush()
+        return self._estimate_interned(self._intern(key))
+
+    def estimate_many(self, keys: Sequence[str]) -> List[int]:
+        """Batched estimates: one flush, then scalar reads per key."""
+        self.flush()
+        return [self._estimate_interned(self._intern(k)) for k in keys]
+
+    def estimate_peek(self, key: str) -> int:
+        """Estimate WITHOUT interning: a never-touched key queried here
+        does not join the ``top_k`` candidate population (diagnostic
+        surfaces like the ``cache_replicate`` tool must be side-effect
+        free)."""
+        kid = self._key_id.get(key)
+        if kid is not None:
+            self.flush()
+            return self._estimate_interned(kid)
+        h = hashlib.blake2b(key.encode(),
+                            digest_size=8 * self.depth).digest()
+        cols = np.frombuffer(h, dtype=np.uint64) % np.uint64(self.width)
+        self.flush()
+        flat = self._flat
+        return min(flat[int(r) * self.width + int(c)]
+                   for r, c in zip(self._rows, cols))
+
+    def top_k(self, k: int = 8) -> List[Tuple[str, int]]:
+        """The ``k`` hottest *interned* keys by estimate, hottest first
+        (ties broken by key for determinism). Only keys ever touched or
+        estimated are candidates — exactly the population the admission
+        and replication layers care about. Vectorized over the interned
+        index matrix; this is the replicator's epoch feed."""
+        self.flush()
+        n = len(self._id_key)
+        if n == 0 or k <= 0:
+            return []
+        if self._idx_matrix is None or len(self._idx_matrix) != n:
+            self._idx_matrix = np.asarray(self._id_cells, dtype=np.int64)
+        est = np.asarray(self._flat, dtype=np.int64)[
+            self._idx_matrix].min(axis=1)
+        k = min(k, n)
+        order = np.lexsort((np.array(self._id_key), -est))[:k]
+        return [(self._id_key[i], int(est[i])) for i in order]
+
+    @property
+    def table(self) -> np.ndarray:
+        """Materialised (depth, width) numpy view of the counters (flushes
+        pending touches first; intended for tests/diagnostics, not the hot
+        path)."""
+        self.flush()
+        return np.asarray(self._flat, dtype=np.uint32).reshape(
+            self.depth, self.width)
+
+
+def entries_json(entries) -> str:
+    """Cache contents serialized for the admission prompt (the same shape
+    ``DataCache.contents_json`` uses, minus values)."""
+    return json.dumps({
+        k: {"last_access": e.last_access, "access_count": e.access_count}
+        for k, e in sorted(entries.items())
+    }, sort_keys=True)
+
+
+# ---------------------------------------------------------------------------
+# Admission policies (mirror of repro_torch.core.policies: programmatic + prompt)
+# ---------------------------------------------------------------------------
+
+class AdmissionPolicy:
+    """Decides whether a loaded key may evict ``victim`` or must bypass.
+
+    Called only when the owning cache is full (an insert into free capacity
+    is always admitted). ``admit`` returning ``False`` means bypass: the
+    value streams through to the caller without installing or evicting.
+    """
+
+    name = "base"
+
+    def admit(self, key: str, victim: str, sketch: Optional[FrequencySketch],
+              entries, size_bytes: Optional[int] = None) -> bool:
+        raise NotImplementedError
+
+    def describe(self) -> str:
+        raise NotImplementedError
+
+
+class AdmitAll(AdmissionPolicy):
+    """The pre-admission behavior: every load installs (and evicts)."""
+
+    name = "always"
+
+    def admit(self, key, victim, sketch, entries, size_bytes=None):
+        return True
+
+    def describe(self):
+        return ("Always-admit: every key loaded from the database is "
+                "installed into the cache; when full, evict the update "
+                "policy's victim to make room. Never bypass.")
+
+
+class TinyLFU(AdmissionPolicy):
+    """Frequency-based admission (TinyLFU): the candidate must be more
+    popular than the entry it would evict."""
+
+    name = "tinylfu"
+
+    def admit(self, key, victim, sketch, entries, size_bytes=None):
+        if sketch is None:
+            return True
+        kf, vf = sketch.estimate_many((key, victim))   # one buffer flush
+        return kf > vf
+
+    def describe(self):
+        return ("TinyLFU admission: when the cache is full, compare the "
+                "candidate key's estimated access frequency against the "
+                "eviction victim's. ADMIT (evict the victim, install the "
+                "candidate) only if the candidate's frequency is STRICTLY "
+                "HIGHER; otherwise BYPASS the cache — pass the loaded data "
+                "through to the caller without caching it, leaving every "
+                "resident entry untouched.")
+
+
+class TinyLFUCost(AdmissionPolicy):
+    """Cost-aware admission (GDSF-inspired, adapted to slot capacity):
+    weight frequency by the entry's modeled *miss penalty*.
+
+    Classic GDSF divides frequency by size because its cache is
+    byte-bounded — small hot objects pack better. Ours is ENTRY-bounded
+    (the paper's 5-slot cache): size buys no packing, but it does set the
+    cost of every future miss (DB load time grows with frame size). The
+    slot-value of an entry is therefore ``frequency x miss_penalty``, with
+    ``miss_penalty ~ BASE_BYTES + size_bytes`` (the fixed per-load overhead
+    — network/round-trip, ~0.62 s at 0.003 s/MB, i.e. ~200 MB-equivalent —
+    plus the size-proportional transfer). Admit only when the candidate's
+    slot-value strictly beats the victim's; exact integer cross-multiply,
+    no float division. When either size is unknown it degrades to the
+    plain TinyLFU frequency comparison. The ablation only has signal once
+    frame sizes diverge (see the engine's ``rows_range`` widened band).
+    """
+
+    name = "tinylfu-cost"
+    BASE_BYTES = 200_000_000     # fixed per-load overhead, in size units
+
+    def admit(self, key, victim, sketch, entries, size_bytes=None):
+        if sketch is None:
+            return True
+        kf, vf = sketch.estimate_many((key, victim))
+        ventry = entries.get(victim) if entries else None
+        vsize = getattr(ventry, "size_bytes", 0) if ventry else 0
+        if not size_bytes or not vsize:
+            return kf > vf                 # sizes unknown: plain TinyLFU
+        return (kf * (self.BASE_BYTES + size_bytes)
+                > vf * (self.BASE_BYTES + vsize))
+
+    def describe(self):
+        return ("Cost-aware TinyLFU admission: when the cache is full, "
+                "compare SLOT VALUE — the candidate's estimated access "
+                "frequency times its miss penalty (a fixed per-load "
+                "overhead plus its size in bytes) against the eviction "
+                "victim's frequency times the victim's miss penalty. ADMIT "
+                "(evict the victim, install the candidate) only if the "
+                "candidate's slot value is STRICTLY HIGHER; otherwise "
+                "BYPASS the cache — stream the loaded data through to the "
+                "caller without caching it, leaving every resident entry "
+                "untouched. Intuition: with slot-bounded capacity, a large "
+                "hot frame is worth MORE than a small equally-hot one — "
+                "every miss on it costs a longer database load.")
+
+
+class Doorkeeper(AdmissionPolicy):
+    """Second-chance admission: one-shot keys never evict a resident; a key
+    is admitted once it has been seen at least twice in the aging window."""
+
+    name = "doorkeeper"
+
+    def admit(self, key, victim, sketch, entries, size_bytes=None):
+        if sketch is None:
+            return True
+        return sketch.estimate(key) >= 2
+
+    def describe(self):
+        return ("Doorkeeper admission: when the cache is full, ADMIT the "
+                "candidate (evicting the victim) only if it has been seen "
+                "at least twice within the current aging window (estimated "
+                "frequency of 2 or more); a first-time key must BYPASS the "
+                "cache — its data passes through to the caller and no "
+                "resident is evicted.")
+
+
+class ScanTinyLFU(TinyLFU):
+    """Scan-resistant TinyLFU.
+
+    TinyLFU's strictly-higher gate is exactly wrong during a sequential
+    scan: the convoy of sessions sweeps the key space in lockstep, so the
+    *next* keys — not the frequent ones — are the ones about to be read,
+    and install-everything beats TinyLFU (30.5% vs 22.8% local hits on the
+    ``scan`` scenario). The stride detector rides the admission candidate
+    stream (no sketch change — sketch behavior is digest-locked): each
+    key is assigned a position the first time it shows up as a candidate,
+    so a sweep — which first visits keys in a stable order and then
+    revisits them in that same order — produces successive candidate
+    positions with small deltas (``|delta| <= window``; the convoy's
+    interleaving and task-level reuse jitter the delta around 0/1, never
+    far). A skewed workload's candidates are tail keys in popularity
+    order, uncorrelated with first-seen order, so deltas are uniform over
+    the keyspace. An EWMA of the small-delta indicator with hysteresis
+    opens the gate (admit everything, LRU-like) while the stream is
+    scan-shaped and closes it when skew returns. Measured gate-open share
+    on the candidate stream: ~0.99 on ``scan`` vs <= 0.07 on ``working``
+    / ``zipf`` / ``hotspot``."""
+
+    name = "scan-tinylfu"
+
+    def __init__(self, window: int = 8, open_at: float = 0.6,
+                 close_at: float = 0.4, alpha: float = 0.1):
+        assert window >= 1
+        assert 0.0 < close_at < open_at < 1.0 and 0.0 < alpha <= 1.0
+        self.window = window
+        self.open_at = open_at
+        self.close_at = close_at
+        self.alpha = alpha
+        self._pos: Dict[str, int] = {}    # key -> first-seen position
+        self._prev: Optional[int] = None
+        # seeded between the thresholds: the gate starts closed (pure
+        # TinyLFU) and a scan opens it within a few candidates
+        self._ewma = 0.5
+        self.gate_open = False
+        self.gate_opens = 0
+        self.gate_closes = 0
+
+    def admit(self, key, victim, sketch, entries, size_bytes=None):
+        pos = self._pos.setdefault(key, len(self._pos))
+        delta = pos - self._prev if self._prev is not None else 1
+        self._prev = pos
+        signal = 1.0 if abs(delta) <= self.window else 0.0
+        self._ewma += self.alpha * (signal - self._ewma)
+        if self.gate_open:
+            if self._ewma < self.close_at:
+                self.gate_open = False
+                self.gate_closes += 1
+        elif self._ewma >= self.open_at:
+            self.gate_open = True
+            self.gate_opens += 1
+        if self.gate_open:
+            return True        # scan detected: admit (evict LRU-style)
+        return super().admit(key, victim, sketch, entries, size_bytes)
+
+    def describe(self):
+        return ("Scan-resistant TinyLFU admission: normally ADMIT the "
+                "candidate (evicting the victim) only if its estimated "
+                "frequency is STRICTLY HIGHER than the victim's, otherwise "
+                "BYPASS. But when the recent candidate stream looks like a "
+                "sequential scan — successive candidates visiting the key "
+                "space in a stable sweep order instead of popularity-random "
+                "tail keys — open the gate and ADMIT everything until the "
+                "stream stops looking sequential.")
+
+
+class LLMAdmission(AdmissionPolicy):
+    """GPT-driven admission: the base policy's ``describe()`` text plus the
+    sketch estimates are rendered into a prompt and the LLM answers
+    admit/bypass in natural language (the paper's prompted-eviction twist
+    applied to admission). Graded against the programmatic base decision;
+    unparseable completions fall back to it.
+
+    Like the paper's prompted *update*, the decision runs off the critical
+    path (post-round bookkeeping — Table III shows ~0 latency delta), so it
+    costs tokens but not user-perceived latency: each call accumulates
+    ``prompt_tokens``/``completion_tokens``, which the single-session
+    controllers fold into the task trace and the engine surfaces as
+    ``admission_tokens``.
+    """
+
+    def __init__(self, base: AdmissionPolicy, llm, few_shot: bool = True):
+        self.base = base
+        self.llm = llm
+        self.few_shot = few_shot
+        self.name = f"llm-{base.name}"
+        self.llm_total = 0
+        self.llm_correct = 0
+        self.prompt_tokens = 0
+        self.completion_tokens = 0
+        # resilience fallbacks to the programmatic base (ungraded): garbled
+        # prompt/completion vs endpoint pool down
+        self.parse_fallbacks = 0
+        self.degraded = 0
+        # locality evidence source (the concurrent engine's locality model):
+        # wired by the concurrent engine under session->pod affinity; the
+        # prompt then exposes the candidate's remote consumer demand.
+        # None (the default) keeps the prompt byte-identical to the locality-free prompt.
+        self.locality = None
+
+    def describe(self):
+        return self.base.describe()
+
+    @property
+    def agreement(self) -> float:
+        return self.llm_correct / self.llm_total if self.llm_total else 1.0
+
+    def _home_demand_json(self, key) -> Optional[str]:
+        if self.locality is None or self.locality.penalty <= 1.0:
+            return None
+        demand = self.locality.remote_demand.get(key)
+        return json.dumps(demand, sort_keys=True) if demand else None
+
+    def admit(self, key, victim, sketch, entries, size_bytes=None):
+        from repro_torch.core.endpoints import LLMUnavailableError
+        from repro_torch.core.prompts import LLMParseError, \
+            admission_decision_prompt, parse_json_tail
+        kf, vf = (sketch.estimate_many((key, victim))
+                  if sketch is not None else (0, 0))
+        prompt = admission_decision_prompt(
+            self.base.describe(), key, victim, kf, vf,
+            entries_json(entries), self.few_shot,
+            home_demand_json=self._home_demand_json(key))
+        expected = self.base.admit(key, victim, sketch, entries,
+                                   size_bytes=size_bytes)
+        try:
+            completion = self.llm.complete(prompt)
+        except LLMUnavailableError:
+            # endpoint pool down: programmatic twin, ungraded (the router
+            # already billed the wasted retry tokens)
+            self.degraded += 1
+            return expected
+        except LLMParseError:
+            self.parse_fallbacks += 1
+            self.prompt_tokens += len(prompt) // 4
+            return expected
+        self.prompt_tokens += len(prompt) // 4
+        self.completion_tokens += len(completion) // 4
+        try:
+            raw = parse_json_tail(completion)
+            decision = raw.get("decision") if isinstance(raw, dict) else None
+        except ValueError:
+            decision = None
+        if decision not in ("admit", "bypass"):
+            # garbled/meaningless completion: programmatic twin, ungraded
+            self.parse_fallbacks += 1
+            return expected
+        got = decision == "admit"
+        self.llm_total += 1
+        self.llm_correct += int(got == expected)
+        return got
+
+
+ADMISSIONS = {"always": AdmitAll, "tinylfu": TinyLFU,
+              "tinylfu-cost": TinyLFUCost, "doorkeeper": Doorkeeper,
+              "scan-tinylfu": ScanTinyLFU}
+
+
+def make_admission(name: str, *, impl: str = "python", llm=None,
+                   few_shot: bool = True, **kw) -> AdmissionPolicy:
+    """Build an admission policy; ``impl="llm"`` wraps it in the GPT-driven
+    path (requires an ``llm`` backend with ``complete(prompt) -> str``)."""
+    base = ADMISSIONS[name](**kw)
+    if impl == "llm":
+        assert llm is not None, "LLM-driven admission needs an llm backend"
+        return LLMAdmission(base, llm, few_shot=few_shot)
+    return base

@@ -130,6 +130,28 @@ def test_port_imports_no_jax_and_no_reference(path):
         assert top not in FORBIDDEN, f"{path}: imports {mod}"
 
 
+# the cache simulator's copies and their twins: framework-free, so beside
+# the guard above they import no torch either
+SIMULATOR = ("core/__init__.py", "core/prompts.py", "core/cache.py",
+             "core/policies.py", "core/admission.py", "core/faults.py",
+             "core/endpoints.py", "core/controller.py", "core/plan_cache.py",
+             "core/tools.py", "agent/__init__.py", "agent/backends.py",
+             "agent/agent.py", "agent/runtime.py", "agent/geollm/__init__.py",
+             "agent/geollm/simclock.py", "agent/geollm/datastore.py",
+             "agent/geollm/geotools.py", "agent/geollm/workload.py",
+             "agent/geollm/evaluator.py", "launch/tables.py",
+             "launch/quickstart.py")
+
+
+@pytest.mark.parametrize("rel", SIMULATOR)
+def test_simulator_modules_are_guarded_and_framework_free(rel):
+    path = PORT / rel
+    assert path in _port_files()
+    for m in _imports(path):
+        top = m.split(".")[0]
+        assert top not in FORBIDDEN + ("torch",), f"{path}: imports {m}"
+
+
 def test_importing_the_port_loads_no_jax():
     mods = sorted(".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
                   .replace(".__init__", "") for p in PORT.rglob("*.py"))
@@ -155,3 +177,20 @@ def test_engine_without_device_raises_when_no_cuda():
         ServingEngine(tcfg, p)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_model(tcfg, torch.Generator().manual_seed(0))
+
+
+def test_decision_backend_without_device_raises_when_no_cuda():
+    """The agent's served decision model is built through ServingEngine,
+    so it takes the device rule: no CUDA and no device="cpu" raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from repro_torch.agent import TorchLLM
+
+    tcfg = dataclasses.replace(get_config("dcache-agent-150m").reduced(),
+                               vocab_size=512)
+    p = init_model(tcfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchLLM(ServingEngine(tcfg, p, max_batch=4, max_len=128))
+    llm = TorchLLM(ServingEngine(tcfg, p, max_batch=4, max_len=128,
+                                 device="cpu"), max_new_tokens=2)
+    assert isinstance(llm.complete("Answer (JSON): "), str)
