@@ -124,6 +124,25 @@ Phases (any failure exits non-zero; nothing is caught):
      the engine's prefills and steps; then the port's Tables I-III
      (table1(n=40), table2(n=30), table3(n=30)) on the card's host against
      the digests that lock the reference;
+  concurrent: the paper's deployment regime on the card: the port's
+     ConcurrentEpisodeEngine (8 sessions x 5 tasks over 4 pods of capacity
+     5, TinyLFU admission and hot-key replication both GPT-driven, zipf
+     1.1 with a global ranking: table_replication's headline cell cut to 8
+     sessions) with one DecisionLog-wrapped TorchLLM over full-width
+     dcache-agent-150m in bf16 (ServingEngine(max_batch=4, max_len=512),
+     32 new tokens a decision) set as the admission and the replication
+     policies' LLM after construction (the sessions' runners keep their
+     SimLLMs), beside the same episode with the engine's own SimLLM planes
+     (34 admission and 8 replication decisions); reports the decisions by
+     plane, each prompt's bytes and the bytes the engine kept, the median
+     and maximum decision wall ms (synchronized), each plane's parse
+     fallbacks and degraded calls, and both runs' sim-clock p50 and p95
+     task latency, local hit rate, replication agreement and stall; the
+     phase's launch counts exactly those of the engine's prefills and
+     steps; then the digest-locked concurrent tables (table_concurrency,
+     table_prefetch, table_admission, table_replication at 25 tasks a
+     session, belady_bound(200), table_resilience(12) with an empty
+     MutationPlan) on the card's host;
   4. for the first three paths, qwen3-4b, phi3-mini-3.8b, qwen1.5-32b,
      mixtral-8x22b (MoE, G 6), hymba-1.5b (attention and Mamba heads),
      seamless-m4t-large-v2 (64 frames a prompt) and llava-next-34b (16
@@ -145,7 +164,11 @@ Phases (any failure exits non-zero; nothing is caught):
      prefilled at its own length); the reduced dcache in fp32 as the cache
      controller's decision model for 2 tasks on the CPU and on the card
      (the same completions and TaskTraces, the card's launch counts
-     exact); and launch.serve's --smoke main (dcache,
+     exact); the same reduced dcache behind the concurrent engine's
+     admission and replication planes in episodes of 2 x 2 and 3 x 2 tasks
+     over 2 pods of capacity 2 on the CPU and on the card (the same
+     completions and EpisodeMetrics row, the card's launch counts exact);
+     and launch.serve's --smoke main (dcache,
      and --arch rwkv6-7b) and launch.serve_llm's on the card, held to the
      launch counts of the engines they return;
   5. training (freeing the card before and after): full-width
@@ -2099,15 +2122,16 @@ class DecisionLog:
     """The controller's decision model with each call recorded: the
     prompt's bytes, the prompt bytes the engine kept (``submit`` keeps the
     last ``max_len // 2`` tokens), the wall ms with the card synchronized
-    before and after, and the completion."""
+    before and after, and the completion. Without an engine (a SimLLM
+    decision plane) it records the prompt's bytes, ms and completion."""
 
-    def __init__(self, llm, engine):
+    def __init__(self, llm, engine=None):
         self.llm, self.engine, self.calls = llm, engine, []
 
     def complete(self, prompt):
         eng = self.engine
-        kept = eng.tok.encode(prompt)[-(eng.max_len // 2):]
-        sync = eng.device.type == "cuda"
+        kept = eng.tok.encode(prompt)[-(eng.max_len // 2):] if eng else []
+        sync = eng is not None and eng.device.type == "cuda"
         if sync:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2115,7 +2139,8 @@ class DecisionLog:
         if sync:
             torch.cuda.synchronize()
         self.calls.append(dict(
-            prompt_bytes=len(prompt.encode()), kept_bytes=sum(i < 256 for i in kept),
+            prompt=prompt, prompt_bytes=len(prompt.encode()),
+            kept_bytes=sum(i < 256 for i in kept),
             ms=1e3 * (time.perf_counter() - t0), completion=out))
         return out
 
@@ -2270,6 +2295,195 @@ def agent_cpu_vs_card():
     log(f"  agent cpu vs card fp32 (reduced, 2 tasks): {len(g_calls)} decisions, "
         f"the same completions and TaskTraces; card launches={counts}")
     return dict(decisions=len(g_calls), launches=counts)
+
+
+# ---------------------------------------------------------------------------
+# concurrent: the fleet's cross-session cache decisions made by the model
+# ---------------------------------------------------------------------------
+
+CONC_SESSIONS, CONC_TASKS = 8, 5
+# the headline cell of table_replication and table_llmfault, cut to 8
+# sessions: 34 admission and 8 replication decisions under SimLLM
+CONC_ENGINE = dict(n_pods=4, capacity_per_pod=5, seed=0, admission="tinylfu",
+                   admission_impl="llm", replication=True, replication_impl="llm",
+                   scenario="zipf",
+                   scenario_kw={"zipf_a": 1.1, "zipf_global": True})
+CONC_METRICS = ("p50_task_latency_s", "p95_task_latency_s", "local_hit_rate",
+                "replication_agreement", "total_stall_s", "llm_parse_fallbacks",
+                "admission_agreement", "n_tasks")
+# the concurrent-engine tables at the sizes and digests the reference's
+# tests lock (test_locality.py, test_coherence.py)
+ENGINE_DIGESTS = (("table_concurrency", {"tasks_per_session": 25}, "8ec8ff89cfb17741"),
+                  ("table_prefetch", {"tasks_per_session": 25}, "13335d76f3b853b8"),
+                  ("table_admission", {"tasks_per_session": 25}, "0ab4ceee8be81cc2"),
+                  ("table_replication", {"tasks_per_session": 25}, "4b8558d2647170c5"),
+                  ("belady_bound", {"n": 200}, "0f372094aa0edaf3"),
+                  ("table_resilience", {"tasks_per_session": 12, "mutations": True},
+                   "9ed9f62ca396989d"))
+
+
+def plane(prompt):
+    """Which decision plane asked: the admission and replication prompts
+    each name their controller."""
+    if "cache admission controller" in prompt:
+        return "admission"
+    assert "cache REPLICATION controller" in prompt, prompt[:300]
+    return "replication"
+
+
+def run_concurrent(decision_llm, n_sessions, n_tasks, **kw):
+    """One episode of the concurrent engine (CONC_ENGINE, ``kw`` over it).
+    ``decision_llm`` replaces the SimLLM behind both the admission and the
+    replication plane (public attributes, set after construction: the
+    sessions' runners keep their own SimLLMs); None keeps the engine's own,
+    each then wrapped in a DecisionLog to count its calls. Returns the
+    engine, the result and the decision logs."""
+    from repro_torch.agent.concurrency import ConcurrentEpisodeEngine
+
+    eng = ConcurrentEpisodeEngine(n_sessions, **{**CONC_ENGINE, **kw})
+    if decision_llm is None:
+        logs = (DecisionLog(eng.admission_policy.llm),
+                DecisionLog(eng.replicator.policy.llm))
+    else:
+        logs = (decision_llm,)
+    eng.admission_policy.llm, eng.replicator.policy.llm = logs[0], logs[-1]
+    return eng, eng.run(n_tasks, reuse_rate=0.8), logs
+
+
+def episode_summary(eng, res, logs):
+    calls = [c for lg in logs for c in lg.calls]
+    by_plane = {"admission": [], "replication": []}
+    for lg in logs:
+        for c in lg.calls:
+            by_plane[plane(c["prompt"])].append(c)
+    m = {k: getattr(res.metrics, k) for k in CONC_METRICS}
+    m.update(decisions={k: len(v) for k, v in by_plane.items()},
+             parse_fallbacks={"admission": eng.admission_policy.parse_fallbacks,
+                              "replication": eng.replicator.policy.parse_fallbacks},
+             degraded={"admission": eng.admission_policy.degraded,
+                       "replication": eng.replicator.policy.degraded},
+             incomplete=res.metrics.resilience_incomplete_sessions)
+    return m, calls
+
+
+def concurrent_phase():
+    """Full-width dcache-agent-150m in bf16 on the card behind the
+    admission and replication planes of an 8-session episode of the
+    concurrent engine, beside the same episode with the engine's own SimLLM
+    planes; the launch counts of both runs against the served engine's
+    prefills and steps; then the digest-locked concurrent tables on the
+    card's host."""
+    from repro_torch.agent import TorchLLM
+    from repro_torch.configs import get_config
+    from repro_torch.core.coherence import MutationPlan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import tables
+    from repro_torch.models.model import init_model
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config("dcache-agent-150m")
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    ServingEngine(cfg, params, max_batch=4, max_len=512,
+                  device="cuda").generate_text(PROMPTS[0], max_new_tokens=4)
+    torch.cuda.synchronize()
+    eng = ServingEngine(cfg, params, max_batch=4, max_len=512, device="cuda")
+    llm = DecisionLog(TorchLLM(eng, max_new_tokens=AGENT_NEW_TOKENS), eng)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    base = episode_summary(*run_concurrent(None, CONC_SESSIONS, CONC_TASKS))[0]
+    t1 = time.perf_counter()
+    ceng, cres, logs = run_concurrent(llm, CONC_SESSIONS, CONC_TASKS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    expected = expected_launches(cfg, eng.prefills, eng.steps)
+    served, calls = episode_summary(ceng, cres, logs)
+    ms = [c["ms"] for c in calls]
+    m = dict(served=served, simllm=base, simllm_wall_s=t1 - t0, served_wall_s=wall,
+             prefills=eng.prefills, steps=eng.steps,
+             prompt_bytes=[c["prompt_bytes"] for c in calls],
+             kept_bytes=[c["kept_bytes"] for c in calls],
+             decision_ms=ms, decision_ms_median=statistics.median(ms),
+             decision_ms_max=max(ms),
+             completions=[c["completion"] for c in calls][:4], launches=counts)
+    log(f"  SimLLM planes: decisions {base['decisions']}; "
+        + " ".join(f"{k}={base[k]}" for k in CONC_METRICS)
+        + f"; parse_fallbacks {base['parse_fallbacks']} degraded {base['degraded']}")
+    log(f"  served planes: {len(calls)} decisions made by the model "
+        f"{served['decisions']} over {CONC_SESSIONS} sessions x {CONC_TASKS} "
+        f"tasks (prefills={eng.prefills} decode_steps={eng.steps}); prompt bytes "
+        f"{min(m['prompt_bytes'])}-{max(m['prompt_bytes'])}, kept by the engine "
+        f"{min(m['kept_bytes'])}-{max(m['kept_bytes'])}")
+    log(f"  served planes: decision wall ms (synchronized) median "
+        f"{m['decision_ms_median']:.2f} max {m['decision_ms_max']:.2f}; "
+        + " ".join(f"{k}={served[k]}" for k in CONC_METRICS)
+        + f"; parse_fallbacks {served['parse_fallbacks']} degraded "
+        f"{served['degraded']}; first completions {m['completions']!r}")
+    log(f"  launches={counts} expected={expected}")
+    assert calls and len(calls) == eng.prefills, "a decision did not reach the engine"
+    assert all(v > 0 for v in served["decisions"].values()), \
+        f"a decision plane was never asked: {served['decisions']}"
+    assert base["decisions"] == {"admission": 34, "replication": 8}, base["decisions"]
+    for run in (base, served):
+        assert run["n_tasks"] == CONC_SESSIONS * CONC_TASKS and run["incomplete"] == 0
+        assert not any(run["degraded"].values())
+        assert all(math.isfinite(run[k]) for k in CONC_METRICS)
+    assert counts == expected, "concurrent phase launch counts differ"
+    t2 = time.perf_counter()
+    m["digests"] = {}
+    for name, kw, digest in ENGINE_DIGESTS:
+        kw = dict(kw)
+        if kw.pop("mutations", False):
+            kw["engine_kw"] = {"mutations": MutationPlan()}
+        got = hashlib.sha256(repr(getattr(tables, name)(**kw)).encode()).hexdigest()[:16]
+        log(f"  {name}({kw}) digest {got} (locked {digest})")
+        assert got == digest, f"{name} digest differs on the card's host"
+        m["digests"][name] = got
+    m["tables_s"] = time.perf_counter() - t2
+    return counts, m
+
+
+def concurrent_cpu_vs_card():
+    """The reduced dcache-agent-150m (head dim 16, vocab 512) in fp32
+    behind the admission and replication planes of small episodes (2 pods
+    of capacity 2, CONC_ENGINE's scenario; 2 x 2 and 3 x 2 tasks, the
+    second reaching the replication plane under the model's fallbacks), on
+    the CPU and on the card from the same weights: the same completions
+    and the same EpisodeMetrics row; the card's launch counts against its
+    engine's prefills and steps."""
+    from repro_torch.agent import TorchLLM
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_model
+    from repro_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(get_config("dcache-agent-150m").reduced(),
+                              vocab_size=512, dtype="float32")
+    gpu_params = init_model(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+    out = {}
+    for n_sessions, n_tasks in ((2, 2), (3, 2)):
+        runs = {}
+        for device, params in (("cpu", tree_to(gpu_params, "cpu")), ("cuda", gpu_params)):
+            eng = ServingEngine(cfg, params, max_batch=4, max_len=128, device=device)
+            llm = DecisionLog(TorchLLM(eng, max_new_tokens=8), eng)
+            ops.reset_launch_counts()
+            _, res, _ = run_concurrent(llm, n_sessions, n_tasks, n_pods=2,
+                                       capacity_per_pod=2)
+            runs[device] = (llm.calls, res.metrics.row(), ops.launch_counts(),
+                            expected_launches(cfg, eng.prefills, eng.steps))
+        (c_calls, c_row, _, _), (g_calls, g_row, counts, expected) = runs["cpu"], runs["cuda"]
+        assert counts == expected, "concurrent cpu vs card launch counts differ"
+        assert [c["completion"] for c in g_calls] == [c["completion"] for c in c_calls], \
+            "the card's completions differ from the CPU's"
+        assert g_row == c_row, "the card's episode metrics differ from the CPU's"
+        planes = {p: sum(plane(c["prompt"]) == p for c in g_calls)
+                  for p in ("admission", "replication")}
+        log(f"  concurrent cpu vs card fp32 (reduced, {n_sessions} sessions x "
+            f"{n_tasks} tasks): decisions {planes}, the same completions and "
+            f"metrics row; card launches={counts}")
+        out[f"{n_sessions}x{n_tasks}"] = dict(decisions=planes, launches=counts)
+    assert out["3x2"]["decisions"]["replication"] > 0, "no replication decision served"
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2719,6 +2933,15 @@ def main() -> int:
     phase_s["agent"] = time.perf_counter() - tg
     free_card()
 
+    log("concurrent: the fleet's admission and replication decisions made by "
+        "full-width dcache-agent-150m on the card")
+    tc = time.perf_counter()
+    c, conc = concurrent_phase()
+    for k, v in c.items():
+        counts[k] = counts.get(k, 0) + v
+    phase_s["concurrent"] = time.perf_counter() - tc
+    free_card()
+
     # phase 4 covers each kernel instance's head dim and group: d 64 (dense,
     # kv_quant), the WKV path, d 128 at G 4 with qk_norm, d 96 at G 1, d 128
     # at G 1 with non-zero QKV biases, the MoE block at d 128 G 6, and the
@@ -2754,6 +2977,12 @@ def main() -> int:
     t4 = time.perf_counter()
     agent["cpu_vs_card"] = agent_cpu_vs_card()
     phase_s["4 agent"] = time.perf_counter() - t4
+    free_card()
+    log("phase 4: CPU vs card, fp32, the reduced dcache as the concurrent "
+        "engine's admission and replication decision model")
+    t4 = time.perf_counter()
+    conc["cpu_vs_card"] = concurrent_cpu_vs_card()
+    phase_s["4 concurrent"] = time.perf_counter() - t4
     free_card()
     log("phase 4: the launchers' --smoke mains on the card")
     t4 = time.perf_counter()
@@ -2827,6 +3056,17 @@ def main() -> int:
         f"sim avg_time_s off={agent['avg_time_s_off']:.4f} "
         f"on={agent['avg_time_s_on']:.4f} ratio={agent['sim_ratio']:.4f} "
         f"launches={agent['launches']}")
+    sv, sb = conc["served"], conc["simllm"]
+    log(f"card: {card} | concurrent {CONC_SESSIONS} sessions x {CONC_TASKS} "
+        f"tasks, dcache-agent-150m bf16 behind admission and replication: "
+        f"decisions={sv['decisions']} (SimLLM {sb['decisions']}) decision_ms "
+        f"median={conc['decision_ms_median']:.2f} max={conc['decision_ms_max']:.2f} "
+        f"kept_bytes max={max(conc['kept_bytes'])} of prompt_bytes max="
+        f"{max(conc['prompt_bytes'])} parse_fallbacks={sv['parse_fallbacks']} "
+        f"sim p95_s served={sv['p95_task_latency_s']:.4f} "
+        f"SimLLM={sb['p95_task_latency_s']:.4f} local_hit_rate served="
+        f"{sv['local_hit_rate']:.4f} SimLLM={sb['local_hit_rate']:.4f} "
+        f"launches={conc['launches']}")
     log(f"card: {card} | bench {' '.join(bench['rows'][1:])} "
         f"{bench['kernel_row']}")
     log(f"card: {card} | dcache-agent-150m serving x{BENCH_RUNS} in one process "
@@ -2865,7 +3105,7 @@ def main() -> int:
                    "src/repro/kernels/rwkv_wkv.py:56")}
     # launches: summed over phase 3's served paths, the paged phase, the
     # assigned shapes (decode_32k, prefill_32k), the bench's served run, the
-    # agent phase's decisions, the two --smoke mains and the serving of the trained and of the restored
+    # agent and concurrent phases' decisions, the two --smoke mains and the serving of the trained and of the restored
     # weights; each counted from zero and held to the counts its own
     # prefills and steps imply (expected_launches)
     # dims_held: the head dims (row widths for rmsnorm) each kernel was held
@@ -2881,6 +3121,7 @@ def main() -> int:
                 "dims_held": sorted(HELD[n])} for n in src]
     result = {"card": card, "serving": serve, "paged": paged,
               "assigned_shapes": shapes, "bench": bench, "agent": agent,
+              "concurrent": conc,
               "reduced_cpu_vs_card": reduced, "smoke_launchers": smoke,
               "training": training, "checkpoint": ckpt, "timing": timing,
               "max_abs_err": errs, "max_abs_err_by_dim": HELD, "kernels": kernels,

@@ -7,7 +7,7 @@ absolute per-task times land in the paper's 5-7 s range and the cache-vs-DB
 ratio is in the paper's 5-10x band (DESIGN §9).
 
 :class:`EventQueue` is the scheduling primitive behind the event-granular
-concurrent engine (``repro.agent.concurrency``, not yet ported): a time-ordered heap with a
+concurrent engine (``repro_torch.agent.concurrency``): a time-ordered heap with a
 deterministic total order — (time, priority, tiebreak) — so simulations are
 bit-reproducible regardless of heap internals. See docs/architecture.md for
 the determinism contract.

@@ -455,7 +455,7 @@ class LLMAdmission(AdmissionPolicy):
         # prompt/completion vs endpoint pool down
         self.parse_fallbacks = 0
         self.degraded = 0
-        # locality evidence source (the concurrent engine's locality model):
+        # locality evidence source (repro_torch.core.locality.LocalityModel):
         # wired by the concurrent engine under session->pod affinity; the
         # prompt then exposes the candidate's remote consumer demand.
         # None (the default) keeps the prompt byte-identical to the locality-free prompt.

@@ -7,7 +7,7 @@ data, so membership changes can land as first-class
 :class:`~repro_torch.agent.geollm.simclock.EventQueue` events with exact ordering
 against loads, prefetches and replication epochs (the engine-side semantics
 — aborts, retries, warm-up transients — live in
-the concurrent engine (``repro.agent.concurrency``, not yet ported); see docs/architecture.md):
+``repro_torch.agent.concurrency``; see docs/architecture.md):
 
 * :class:`FaultPlan`        — a sorted schedule of ``fail``/``restore``/
                               ``scale_out``/``scale_in`` events, plus

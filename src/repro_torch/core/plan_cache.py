@@ -11,7 +11,7 @@ caching + retry-correctness warnings):
 * **key model** — ``(task_template_id, context_digest)``. The template id
   is the task's step-kind chain (its "shape"); the context digest hashes
   the sorted required keys *with their current datastore versions* (via
-  the concurrent engine's ``CoherenceRuntime`` when a mutable data
+  :class:`~repro_torch.agent.concurrency.CoherenceRuntime` when a mutable data
   plane is wired, version 0 otherwise) *and their current cache
   residency* (a read plan is a pure function of keys × residency × eps
   noise, so residency IS request context — without it a cold-start
@@ -41,7 +41,7 @@ by tests/test_plan_cache.py): serving a stored plan must not shift the
 session's decision-noise RNG stream, or every later task's answers would
 diverge from a forced-miss replay. The engine therefore burns the exact
 eps draws a fresh plan would have consumed on every hit
-(the concurrent engine's ``SharedCacheController.consume_plan_noise``).
+(:meth:`~repro_torch.agent.concurrency.SharedCacheController.consume_plan_noise`).
 A stored plan may still mispredict *current* residency — that surfaces
 through the existing failed-``read_cache`` → re-plan path (time/tokens
 shift, answers never do), exactly like an eps-flipped fresh decision.

@@ -10,8 +10,8 @@ same prompt strings) and prints the same ``bench,metric,value`` rows. Its
 head dim is 16. ``bench_kernels`` times the flash-attention kernel on the
 card with CUDA events at the reference's shapes (q (1,4,256,64), k/v
 (1,2,256,64), fp32); it raises without a card, since a CPU time is no
-kernel time. The reference's ``bench_cache_ops`` times the cache of
-``repro.core``, which has no counterpart in the port, and is not ported.
+kernel time. ``bench_cache_ops`` times the host-side ``DataCache`` ops of
+``repro_torch.core`` (the mechanism the paper adds) as the reference does.
 """
 from __future__ import annotations
 
@@ -75,6 +75,25 @@ def serving_rows(eng: ServingEngine, seconds: float) -> List[str]:
         f"serving,throughput_tok_s,{s['throughput_tok_s']:.2f}",
         f"serving,mean_ttft_s,{s['mean_ttft_s']:.3f}",
     ]
+
+
+def bench_cache_ops(n: int = 5_000) -> List[str]:
+    """Host-side cache op latency (the actual mechanism the paper adds)."""
+    from repro_torch.core.cache import DataCache
+    from repro_torch.core.policies import make_policy
+    c = DataCache(capacity=5)
+    pol = make_policy("lru")
+    keys = [f"d{i}-20{i % 10:02d}" for i in range(40)]
+    t0 = time.perf_counter()
+    for i in range(n):
+        k = keys[i % len(keys)]
+        if k in c:
+            c.get(k)
+        else:
+            victim = pol.victim(c.entries()) if len(c) >= 5 else None
+            c.put(k, i, 1, victim=victim)
+    us = (time.perf_counter() - t0) / n * 1e6
+    return [f"cache_ops,us_per_call,{us:.2f}"]
 
 
 def bench_kernels(device=None) -> List[str]:

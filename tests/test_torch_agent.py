@@ -23,7 +23,9 @@ MODULES = ("core.prompts", "core.cache", "core.policies", "core.admission",
            "core.plan_cache", "core.tools", "agent.geollm.simclock",
            "agent.geollm.datastore", "agent.geollm.geotools",
            "agent.geollm.workload", "agent.geollm.evaluator",
-           "agent.backends", "agent.agent", "agent.runtime")
+           "agent.backends", "agent.agent", "agent.runtime", "core.profiling",
+           "core.locality", "core.distributed_cache", "core.replication",
+           "core.traffic", "core.coherence", "agent.concurrency")
 
 
 def mod(pkg, name):
