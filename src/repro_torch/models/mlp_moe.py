@@ -24,6 +24,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import init_param, swiglu
 
@@ -158,7 +159,8 @@ def moe(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dispatch = dispatch.to(x.dtype)
     combine = combine.to(x.dtype)
     xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)        # (G,E,C,D)
-    ye = _experts(p, xe)
+    with tracing.span("moe.experts"):
+        ye = _experts(p, xe)
     out = torch.einsum("gecd,gtec->gtd", ye, combine).reshape(B, S, D)
     if cfg.moe.n_shared_experts:
         out = out + swiglu(x @ p["ws_gate"], x @ p["ws_up"]) @ p["ws_down"]

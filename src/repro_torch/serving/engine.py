@@ -38,7 +38,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import alloc_cache, effective_cache_len
 from repro_torch.models.model import decode_step, prefill_step
@@ -140,50 +140,61 @@ class ServingEngine:
             req = self.waiting.pop(0)
             n = len(req.prompt_ids)
             bucket = self._prefill_len(n)
-            ids = req.prompt_ids + [0] * (bucket - n)
-            batch = {"tokens": torch.tensor([ids], dtype=torch.int32,
-                                            device=self.device)}
-            row_cache, logits = prefill_step(
-                self.cfg, self.params, batch, max_len=self.max_len,
-                true_lens=torch.tensor([n], dtype=torch.int32, device=self.device))
-            self.prefills += 1
-            self._install(slot, row_cache)
-            tok = sample(logits[:, -1].float(), self._gen,
-                         temperature=req.temperature)
-            req.out_ids.append(int(tok[0]))
-            req.first_token_at = time.perf_counter()
-            self.slots[slot] = req
+            tracing.record("engine.queue", req.submitted_at)
+            with tracing.span("engine.admit", tokens=n, padded=bucket):
+                ids = req.prompt_ids + [0] * (bucket - n)
+                batch = {"tokens": torch.tensor([ids], dtype=torch.int32,
+                                                device=self.device)}
+                with tracing.span("model.prefill"):
+                    row_cache, logits = prefill_step(
+                        self.cfg, self.params, batch, max_len=self.max_len,
+                        true_lens=torch.tensor([n], dtype=torch.int32,
+                                               device=self.device))
+                self.prefills += 1
+                self._install(slot, row_cache)
+                tok = sample(logits[:, -1].float(), self._gen,
+                             temperature=req.temperature)
+                with tracing.span("engine.sync"):
+                    req.out_ids.append(int(tok[0]))
+                req.first_token_at = time.perf_counter()
+                self.slots[slot] = req
 
     @torch.no_grad()
     def step(self) -> int:
         """One engine step: admit waiting requests, decode all slots."""
-        self._admit()
-        active = [i for i, r in enumerate(self.slots) if r is not None]
-        if not active:
-            return 0
-        tokens = np.zeros((self.max_batch, 1), np.int32)
-        for i in active:
-            tokens[i, 0] = self.slots[i].out_ids[-1]
-        logits, self.cache = decode_step(
-            self.cfg, self.params, torch.from_numpy(tokens).to(self.device),
-            self.cache)
-        temps = [r.temperature if r is not None else 0.0 for r in self.slots]
-        nxt = sample(logits[:, -1].float(), self._gen,
-                     temperature=temps).cpu().numpy()
-        pos = self.cache["pos"].cpu().numpy()
-        self.steps += 1
-        for i in active:
-            req = self.slots[i]
-            tok = int(nxt[i])
-            req.out_ids.append(tok)
-            limit_hit = len(req.out_ids) >= req.max_new_tokens
-            pos_cap = int(pos[i]) >= self.max_len - 1
-            if tok == self.tok.eos_id or limit_hit or pos_cap:
-                req.done = True
-                req.finished_at = time.perf_counter()
-                self.finished.append(req)
-                self.slots[i] = None
-        return len(active)
+        with tracing.span("engine.step") as st:
+            prefills = self.prefills
+            self._admit()
+            active = [i for i, r in enumerate(self.slots) if r is not None]
+            st.rows, st.admitted = len(active), self.prefills - prefills
+            if not active:
+                return 0
+            tokens = np.zeros((self.max_batch, 1), np.int32)
+            for i in active:
+                tokens[i, 0] = self.slots[i].out_ids[-1]
+            with tracing.span("model.decode"):
+                logits, self.cache = decode_step(
+                    self.cfg, self.params,
+                    torch.from_numpy(tokens).to(self.device), self.cache)
+            temps = [r.temperature if r is not None else 0.0 for r in self.slots]
+            sampled = sample(logits[:, -1].float(), self._gen, temperature=temps)
+            with tracing.span("engine.sync"):
+                nxt = sampled.cpu().numpy()
+            with tracing.span("engine.sync"):
+                pos = self.cache["pos"].cpu().numpy()
+            self.steps += 1
+            for i in active:
+                req = self.slots[i]
+                tok = int(nxt[i])
+                req.out_ids.append(tok)
+                limit_hit = len(req.out_ids) >= req.max_new_tokens
+                pos_cap = int(pos[i]) >= self.max_len - 1
+                if tok == self.tok.eos_id or limit_hit or pos_cap:
+                    req.done = True
+                    req.finished_at = time.perf_counter()
+                    self.finished.append(req)
+                    self.slots[i] = None
+            return len(active)
 
     def run_until_done(self, max_steps: int = 10_000):
         while (self.waiting or any(s is not None for s in self.slots)) \
