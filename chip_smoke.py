@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; nothing is caught):
      (any spill fails the run), the 12 attention instances at head dims
      16 and 32 (flash mma and fma, decode and int8 decode in bf16 and fp32)
      and the 12 WKV instances (prefill and decode, bf16 and fp32, head dims
-     16, 32 and 64) by name;
+     16, 32 and 64) and the 4 rope instances by name;
   2. hold each kernel against its plain PyTorch version on the card, in bf16
      (atol = rtol = 2e-2) and fp32 (1e-4, sums in another order), at the main
      paths' shapes and ragged ones: flash and decode at every served
@@ -39,8 +39,13 @@ Phases (any failure exits non-zero; nothing is caught):
      cross-attention: the encoder's K/V of a cache layer, pos = C - 1) at
      every served head shape; flash and decode at head dims 16 and 32
      (SMALL_HEADS: G 1, 2 and 4, every mask, ragged S and C) and the int8
-     kernel there at G 4, 2, 1 and 16. A misaligned view of an attention (bf16 or int8)
-     or WKV input must raise and launch nothing. Time kernel, plain version and the library call
+     kernel there at G 4, 2, 1 and 16; rope at ROPE_SHAPES (granite's and
+     mixtral's decode steps with the ring write at slots 0, C - 1, C and
+     past 2C, their prefills at S 2,048 and 8,192), phi3's head dim 96, the
+     reduced head dim 16 and a q view off 16 bytes (its scalar path), each
+     logged bit for bit or not. A misaligned view of an attention (bf16 or
+     int8) or WKV input, or of a ring rope_append writes, must raise and
+     launch nothing; so must rope at an odd head dim. Time kernel, plain version and the library call
      (CUDA events, median of 50) at each served path's shapes (dcache,
      qwen3-4b, phi3-mini-3.8b, qwen1.5-32b's decode, mixtral's G 6,
      llama4's G 5 and llava's G 7 at d 128, seamless's MHA at d 64),
@@ -49,8 +54,9 @@ Phases (any failure exits non-zero; nothing is caught):
      three attention kernels at head dims 16 and 32 at the reduced
      dcache's heads and the serving bench's shapes, decode at G 40 (d 128)
      and G 64 (d 64, also int8) in two group tiles, WKV and the per-head
-     rmsnorm at the reduced rwkv6's head dim 16 (and WKV at 32), and an
-     empty kernel (the launch floor);
+     rmsnorm at the reduced rwkv6's head dim 16 (and WKV at 32), rope at
+     ROPE_SHAPES (with the launch API calls a call of kernel and plain
+     version make), and an empty kernel (the launch floor);
   3. serve twelve paths at full width in bf16, each with random weights from
      a seeded torch.Generator, through ServingEngine(max_batch=4,
      max_len=512) (8 prompts x 32 new tokens) and then one
@@ -244,7 +250,7 @@ PROFILE_ITERS = 3
 KERNEL_NEEDLES = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "flash_kernel",
                   "decode_attention": "decode_kernel",
                   "decode_attention_int8": "decode_int8_kernel",
-                  "wkv": "wkv_kernel"}
+                  "wkv": "wkv_kernel", "rope": "rope_kernel"}
 
 
 def log(*a):
@@ -400,6 +406,9 @@ def served_shapes():
 SMALL_DIM_NAMES = (r"(flash_kernel_mma|flash_kernel_fma|decode_kernel|"
                    r"decode_int8_kernel)I(13__nv_bfloat16|f)?Li(16|32)E")
 WKV_NAMES = r"(wkv_kernel_decode|wkv_kernel)I(13__nv_bfloat16|f)Li(16|32|64)E"
+# the rope kernel's instances: bf16 and fp32, 16-byte vectors (8 or 4
+# elements) and the scalar path (1)
+ROPE_NAMES = r"(rope_kernel)I(13__nv_bfloat16|f)Li(1|4|8)E"
 
 
 def instances(ptxas, names):
@@ -458,6 +467,7 @@ def check_kernels(errs):
         log(f"  group tiles {str(dtype)[6:]}: {time.perf_counter() - t0:.1f} s")
         for d in HEAD_DIMS:
             check_int8(gen, dtype, d, errs)
+        check_rope(gen, dtype, errs)
         check_misaligned(gen, dtype)
         check_refused(gen, dtype)
     t0 = time.perf_counter()
@@ -684,9 +694,74 @@ def check_int8(gen, dtype, d, errs):
         vs, p)
 
 
+# the rope kernel's served shapes: (name, B, S, Hq, KV, hd, C, theta); C > 0
+# is a decode step's ring of C slots (rope_append), C = 0 a prefill (rope)
+ROPE_SHAPES = (("granite decode", 32, 1, 32, 8, 64, 4096, 10_000.0),
+               ("mixtral decode", 32, 1, 48, 8, 128, 16384, 1e6),
+               ("granite prefill", 1, 2048, 32, 8, 64, 0, 10_000.0),
+               ("mixtral prefill", 1, 8192, 48, 8, 128, 0, 1e6))
+
+
+def rope_case(gen, dtype, B, S, Hq, KV, hd, C, theta):
+    """Inputs of one rope shape: q, k (v and the rings at a decode step,
+    positions 0, C - 1, C, and past 2C), and the kernel's and the plain
+    version's calls, each returning what it wrote."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rope import rope_append_plain, rope_plain
+
+    q = randn(gen, B, S, Hq, hd, dtype=dtype)
+    k = randn(gen, B, S, KV, hd, dtype=dtype)
+    if not C:
+        pos = torch.arange(S, dtype=torch.int32, device="cuda")
+        return (lambda: ops.rope(q, k, pos, theta),
+                lambda: (rope_plain(q, pos, theta), rope_plain(k, pos, theta)))
+    v = randn(gen, B, S, KV, hd, dtype=dtype)
+    first = [0, C - 1, C, 2 * C + 7]
+    pos = torch.tensor(first + torch.randint(0, 3 * C, (B - len(first),),
+                                             generator=torch.Generator().manual_seed(C)
+                                             ).tolist(),
+                       dtype=torch.int32, device="cuda")
+    rings = randn(gen, 2, B, C, KV * hd, dtype=dtype)
+    mine, gold = rings.clone(), rings.clone()
+    return (lambda: (ops.rope_append(q, k, v, pos, mine[0], mine[1], theta), mine),
+            lambda: (rope_append_plain(q, k, v, pos, gold[0], gold[1], theta), gold))
+
+
+def check_rope(gen, dtype, errs):
+    """The rope kernel against its plain version at the served shapes
+    (ROPE_SHAPES), phi3's head dim 96, the reduced configs' 16 and a q view
+    off 16 bytes (the scalar path): q, k and the rings compared whole. Bit
+    for bit is expected (the plain version's fp32 op order, each product
+    rounded); a transcendental that differs shows as a max difference."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rope import rope_plain
+
+    cases = list(ROPE_SHAPES) + [("phi3 prefill", 2, 37, 32, 32, 96, 0, 10_000.0),
+                                 ("phi3 decode", 4, 1, 32, 32, 96, 512, 10_000.0),
+                                 ("reduced decode", 4, 1, 4, 2, 16, 128, 10_000.0)]
+    for name, B, S, Hq, KV, hd, C, theta in cases:
+        run, plain = rope_case(gen, dtype, B, S, Hq, KV, hd, C, theta)
+        out, gold = run(), plain()
+        exact = all(torch.equal(a, b) for a, b in zip(out, gold))
+        log(f"  rope {name} {str(dtype)[6:]}: bit for bit {exact}")
+        for a, b in zip(out, gold):
+            compare("rope", f"{name} {tuple(a.shape)}", a.view(*a.shape[:-1], -1, hd),
+                    b.view(*b.shape[:-1], -1, hd), dtype, errs)
+    Hq, hd = 32, 64
+    q = randn(gen, 4 * Hq * hd + 1, dtype=dtype)[1:].view(4, 1, Hq, hd)
+    k = randn(gen, 4, 1, 8, hd, dtype=dtype)
+    pos = torch.tensor([[3], [70], [4097], [16000]], dtype=torch.int32, device="cuda")
+    out = ops.rope(q, k, pos, 10_000.0)
+    for a, b in zip(out, (rope_plain(q, pos, 10_000.0), rope_plain(k, pos, 10_000.0))):
+        log(f"  rope misaligned q (scalar path) {str(dtype)[6:]}: bit for bit "
+            f"{torch.equal(a, b)}")
+        compare("rope", "misaligned q view", a, b, dtype, errs)
+
+
 def check_misaligned(gen, dtype):
     """A view offset by one element must raise before any launch: the
-    attention and WKV kernels copy 16-byte rows."""
+    attention and WKV kernels copy 16-byte rows, and rope_append refuses a
+    ring the decode kernel would refuse before writing into it."""
     from repro_torch.kernels import ops
 
     Hq, Hkv, S, d = 12, 4, 64, 64
@@ -700,8 +775,13 @@ def check_misaligned(gen, dtype):
     codes = torch.zeros(S * Hkv * d + 1, dtype=torch.int8, device="cuda")[1:] \
         .view(1, S, Hkv, d).transpose(1, 2)
     scales = torch.ones((1, Hkv, S), dtype=dtype, device="cuda")
+    ring = randn(gen, S * Hkv * d + 1, dtype=dtype)[1:].view(1, S, Hkv * d)
     before = ops.launch_counts()
     for name, call in (
+            ("rope_append", lambda: ops.rope_append(
+                rk[:, :1], rk[:, :1], rk[:, :1],
+                torch.zeros(1, dtype=torch.int32, device="cuda"), ring, ring,
+                10_000.0)),
             ("flash_attention", lambda: ops.flash_attention(q, k, k)),
             ("decode_attention", lambda: ops.decode_attention(
                 q[:, :, 0], k, k, torch.zeros(1, dtype=torch.int32, device="cuda"))),
@@ -739,6 +819,11 @@ def check_refused(gen, dtype):
     w = torch.full((1, 8, 2, 48), 0.9, device="cuda")
     calls.append(("wkv", ValueError,
                   lambda: ops.wkv(r, r, r, w, randn(gen, 2, 48, dtype=dtype))))
+    # rope: an odd head dim
+    r15 = randn(gen, 1, 8, 2, 15, dtype=dtype)
+    calls.append(("rope", ValueError,
+                  lambda: ops.rope(r15, r15, torch.arange(8, dtype=torch.int32,
+                                                          device="cuda"), 1e4)))
     for name, exc, call in calls:
         try:
             call()
@@ -895,6 +980,34 @@ def time_flash(gen, Hq, Hkv, S, d, causal=True):
         bound_ms=b, bound_by=by)
 
 
+def time_rope(gen):
+    """The rope kernel at ROPE_SHAPES in bf16: a decode step's q and k with
+    the ring write of k and v, and a prefill's q and k. Bytes: q and k (and
+    v at a step) read once and written once, pos read. No single PyTorch
+    call ropes: no library time; the launch API calls a call makes are the
+    kernel's and the plain version's."""
+    dt, es, rows = torch.bfloat16, 2, {}
+    for name, B, S, Hq, KV, hd, C, theta in ROPE_SHAPES:
+        run, plain = rope_case(gen, dt, B, S, Hq, KV, hd, C, theta)
+        n = B * S * (Hq + KV) * hd
+        nb = 2 * (n + (B * KV * hd if C else 0)) * es + 4 * (B if C else S)
+        b, by = bound_ms(nb, 3 * n, torch.float32)
+        per_call, _, _, launches = device_profile(run, 20)
+        key = "rope" if name == "granite decode" else "rope_" + name.replace(" ", "_")
+        rows[key] = dict(
+            shape=(f"q ({B},{S},{Hq},{hd}), k ({B},{S},{KV},{hd}) bf16"
+                   + (f", rings ({B},{C},{KV * hd}) written at pos % C" if C else
+                      ", positions arange(S)")),
+            ms=time_ms(run), plain_ms=time_ms(plain),
+            library_ms=None, library_device_us=None,
+            device_us=kernel_device_us(per_call, "rope_kernel"),
+            bound_ms=b, bound_by=by, launch_api_calls=launches,
+            plain_launch_api_calls=device_profile(plain, 5)[3])
+        log(f"  rope {name}: launch API calls a call, kernel {launches:.0f}, "
+            f"plain {rows[key]['plain_launch_api_calls']:.0f}")
+    return rows
+
+
 def time_kernels():
     """Kernel / plain / library times at the main paths' shapes (bf16)."""
     import torch.nn.functional as F
@@ -1021,6 +1134,7 @@ def time_kernels():
             library_ms=None, library_device_us=None,
             device_us=kernel_device_us(device_profile(run, 20)[0], "wkv_kernel"),
             bound_ms=b, bound_by=by)
+    rows.update(time_rope(gen))
     # the floor under any launch: an empty kernel of one 128-thread block
     from repro_torch.kernels import _build
     clib, stream = _build.load_library(), torch.cuda.current_stream().cuda_stream
@@ -1057,21 +1171,26 @@ def expected_launches(cfg, prefills, steps):
     at the end, flash unmasked once a layer) and to every decoder layer a
     third rmsnorm and the cross-attention: torch ops at a prefill, the
     decode kernel at a step. The vlm family takes the dense rule, an image
-    prefill included."""
+    prefill included. Every roped self-attention layer launches the rope
+    kernel once a prefill and once a step (with the ring write at a step;
+    the int8 ring's rope alone): L per prefill and per step, plus the
+    encoder's Le per prefill; rwkv6 has no rope."""
     L, n = cfg.n_layers, prefills + steps
     if cfg.family == "ssm":
         return {"rmsnorm": (3 * L + 1) * n, "flash_attention": 0,
-                "decode_attention": 0, "decode_attention_int8": 0, "wkv": L * n}
+                "decode_attention": 0, "decode_attention_int8": 0, "wkv": L * n,
+                "rope": 0}
     if cfg.is_encdec:
         Le = cfg.n_encoder_layers
         return {"rmsnorm": (2 * Le + 1) * prefills + (3 * L + 1) * n,
                 "flash_attention": (Le + L) * prefills,
                 "decode_attention": 2 * L * steps, "decode_attention_int8": 0,
-                "wkv": 0}
+                "wkv": 0, "rope": Le * prefills + L * n}
     decode = "decode_attention_int8" if cfg.kv_quant else "decode_attention"
     norms = 4 if cfg.qk_norm else 2
     out = {"rmsnorm": (norms * L + 1) * n, "flash_attention": L * prefills,
-           "decode_attention": 0, "decode_attention_int8": 0, "wkv": 0}
+           "decode_attention": 0, "decode_attention_int8": 0, "wkv": 0,
+           "rope": L * n}
     out[decode] = L * steps
     return out
 
@@ -2874,6 +2993,10 @@ def main() -> int:
     for name, regs, spill in wkv:
         log(f"  WKV head dim {name}: {regs} registers, {spill}")
     assert len(wkv) == 12, f"expected 12 WKV instances, got {len(wkv)}"
+    rope_regs = instances(ptxas, ROPE_NAMES)
+    for name, regs, spill in rope_regs:
+        log(f"  rope vec {name}: {regs} registers, {spill}")
+    assert len(rope_regs) == 4, f"expected 4 rope instances, got {len(rope_regs)}"
 
     log("phase 2: kernels against their plain versions on the card")
     t2 = time.perf_counter()
@@ -3102,7 +3225,11 @@ def main() -> int:
            "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:108"),
            "wkv": ("src/repro_torch/kernels/csrc/rwkv_wkv.cu",
-                   "src/repro/kernels/rwkv_wkv.py:56")}
+                   "src/repro/kernels/rwkv_wkv.py:56"),
+           # no Pallas counterpart: the jnp rope (src/repro/models/common.py)
+           # and decode_attend's ring write
+           "rope": ("src/repro_torch/kernels/csrc/rope.cu",
+                    "src/repro/models/common.py:rope")}
     # launches: summed over phase 3's served paths, the paged phase, the
     # assigned shapes (decode_32k, prefill_32k), the bench's served run, the
     # agent and concurrent phases' decisions, the two --smoke mains and the serving of the trained and of the restored

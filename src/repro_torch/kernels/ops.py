@@ -15,14 +15,16 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_int8)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rope import rope, rope_append
 from repro_torch.kernels.rwkv_wkv import wkv
 
+# rope_append launches the rope kernel and counts in rope.launches
 KERNELS = (rmsnorm, flash_attention, decode_attention, decode_attention_int8,
-           wkv)
+           wkv, rope)
 
 __all__ = ["rmsnorm", "flash_attention", "decode_attention",
-           "decode_attention_int8", "wkv", "launch_counts",
-           "reset_launch_counts"]
+           "decode_attention_int8", "wkv", "rope", "rope_append",
+           "launch_counts", "reset_launch_counts"]
 
 
 def launch_counts() -> Dict[str, int]:

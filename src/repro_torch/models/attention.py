@@ -5,8 +5,11 @@ cross-attention on the encoder's output.
 Prefill self-attention (causal, or unmasked in the encoder) runs through
 ``ops.flash_attention`` and decode through ``ops.decode_attention``
 (``ops.decode_attention_int8`` on the int8 cache of ``cfg.kv_quant``, which
-dequantizes inside the kernel): on the card these are the hand-written
-Hopper kernels, on the CPU their plain versions. Cross-attention at
+dequantizes inside the kernel); q and k are roped by ``ops.rope``, and at a
+decode step by ``ops.rope_append``, which also writes the new K/V into the
+ring (the int8 ring ropes with ``ops.rope`` and quantizes on its own): on
+the card these are the hand-written Hopper kernels, on the CPU their plain
+versions. Cross-attention at
 prefill has more keys than queries, which the flash kernel does not take
 (nor does the Pallas kernel): it runs ``attention_xla``, as the reference
 runs its XLA path. Cross-attention at decode is the decode kernel over the
@@ -31,7 +34,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.common import init_param, rms_norm, rope
+from repro_torch.kernels.rope import rope_plain
+from repro_torch.models.common import init_param, rms_norm
 
 NEG_INF = -1e30
 
@@ -151,8 +155,13 @@ def attend(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     q, k, v = _project_qkv(p, cfg, x, kv_x=kv_x, is_train=is_train)
     if use_rope and kv_x is None:
         pos = torch.arange(S, dtype=torch.int32, device=x.device)
-        q = rope(q.reshape(B, S, -1, hd), pos, cfg.rope_theta).view(q.shape)
-        k = rope(k, pos, cfg.rope_theta)                     # (B,S,KV,hd)
+        qh = q.reshape(B, S, -1, hd)                         # (B,S,Hq,hd)
+        if is_train:      # differentiable torch ops: the kernel has no backward
+            qh, k = (rope_plain(qh, pos, cfg.rope_theta),
+                     rope_plain(k, pos, cfg.rope_theta))
+        else:
+            qh, k = ops.rope(qh, k, pos, cfg.rope_theta)     # k (B,S,KV,hd)
+        q = qh.view(q.shape)
     if is_train or kv_x is not None:
         out = attention_xla(q, k, v, cfg, causal=causal)
     else:
@@ -224,27 +233,26 @@ def decode_attend(p: Dict, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
     C = k_cache.shape[1]
     hd, kvh = cfg.head_dim_, cfg.n_kv_heads
     q, k_new, v_new = _project_qkv(p, cfg, x)
-    q = rope(q.reshape(B, 1, -1, hd), pos[:, None], cfg.rope_theta)  # (B,1,Hq,hd)
-    k_new = rope(k_new, pos[:, None], cfg.rope_theta)
-
-    slot = torch.remainder(pos.long(), C)
-    bidx = torch.arange(B, device=x.device)
-    kn = k_new[:, 0].reshape(B, -1)
-    vn = v_new[:, 0].reshape(B, -1)
+    q = q.reshape(B, 1, -1, hd)                                      # (B,1,Hq,hd)
     # (B,C,KV*hd) viewed as the kernel's (B,KV,C,hd): strides, no copy
     kc = k_cache.view(B, C, kvh, hd).transpose(1, 2)
     vc = v_cache.view(B, C, kvh, hd).transpose(1, 2)
     win, chunk = cfg.sliding_window, cfg.attn_chunk
     if cfg.kv_quant:
-        k_cache[bidx, slot], k_scale[bidx, slot] = quantize_kv(kn, kvh)
-        v_cache[bidx, slot], v_scale[bidx, slot] = quantize_kv(vn, kvh)
+        q, k_new = ops.rope(q, k_new, pos[:, None], cfg.rope_theta)
+        slot = torch.remainder(pos.long(), C)
+        bidx = torch.arange(B, device=x.device)
+        k_cache[bidx, slot], k_scale[bidx, slot] = quantize_kv(
+            k_new[:, 0].reshape(B, -1), kvh)
+        v_cache[bidx, slot], v_scale[bidx, slot] = quantize_kv(
+            v_new[:, 0].reshape(B, -1), kvh)
         # scales (B,C,KV) as the kernel's (B,KV,C)
         o = ops.decode_attention_int8(q[:, 0], kc, vc, k_scale.transpose(1, 2),
                                       v_scale.transpose(1, 2), pos,
                                       window=win, chunk=chunk)
-    else:
-        k_cache[bidx, slot] = kn
-        v_cache[bidx, slot] = vn
+    else:         # rope q and k_new, then k_new and v_new into slot pos % C
+        q = ops.rope_append(q, k_new, v_new, pos, k_cache, v_cache,
+                            cfg.rope_theta)
         o = ops.decode_attention(q[:, 0], kc, vc, pos, window=win, chunk=chunk)
     out = o.reshape(B, 1, -1) @ p["wo"]
     if cfg.kv_quant:

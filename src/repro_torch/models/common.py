@@ -56,22 +56,6 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, *,
     return ops.rmsnorm(x, scale, eps=eps)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding, rotate-half layout. x: (..., S, H, D); positions:
-    (..., S) or (S,)."""
-    d = x.shape[-1]
-    half = d // 2
-    freqs = torch.exp(-math.log(theta)
-                      * torch.arange(0, half, dtype=torch.float32, device=x.device)
-                      / half)
-    ang = positions.float()[..., None] * freqs          # (..., S, half)
-    cos = torch.cos(ang)[..., None, :]                  # broadcast over heads
-    sin = torch.sin(ang)[..., None, :]
-    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
-    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
-                     dim=-1).to(x.dtype)
-
-
 def swiglu(x_gate: torch.Tensor, x_up: torch.Tensor) -> torch.Tensor:
     """silu(gate) * up in the input dtype."""
     return F.silu(x_gate) * x_up

@@ -238,7 +238,8 @@ def test_wrappers_on_cpu_take_plain_and_count_nothing():
                        decode_attention_int8_plain(q1, kq, kq, sc, sc, pos))
     assert tops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
                                     "decode_attention": 0,
-                                    "decode_attention_int8": 0, "wkv": 0}
+                                    "decode_attention_int8": 0, "wkv": 0,
+                                    "rope": 0}
 
 
 def test_wrappers_refuse_other_devices():
