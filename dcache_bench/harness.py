@@ -1,13 +1,17 @@
 """One run of one cell: set-up, the measured window, the trace, the check.
 
 Everything a cell needs is found by name: the cell in ``BENCHMARK.json``,
-its configuration in ``dcache_bench/configs/<config>.json``, its traffic in
+its configuration in ``dcache_bench/configs/<config>.json``, the
+configuration's architecture (its sizes, weights, the port's
+``ModelConfig`` fields and its work counts) in
+``dcache_bench/architectures/<architecture>.py``, its traffic in
 ``dcache_bench/mixes/<traffic>.json``, its limits in
 ``dcache_bench/limits/<cell>.json``, its reference in
 ``dcache_bench/reference/<reference>.py`` and each per-layer metric in
 ``dcache_bench/metrics/<metric>.py`` (a metric named for its cell,
 ``<metric>.<cell>``, by the reader of ``<metric>``). Adding a cell, a mix, a
-configuration or a metric adds files and edits none of these.
+configuration, an architecture or a metric adds files and edits none of
+these.
 
 A run:
 
@@ -39,7 +43,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from dcache_bench import arith, judge, traffic, weights
+from dcache_bench import arith, judge, traffic
 from dcache_bench.trace import from_profiler
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -72,31 +76,22 @@ def load_config(root: Path, name: str) -> Dict:
     return json.loads(path.read_text())
 
 
-SUPPORTED = {"hidden_act": "silu", "attention_bias": False,
-             "torch_dtype": "bfloat16"}
+_ARCHITECTURES: Dict[Path, object] = {}
 
 
-def sizes_of(cfg: Dict) -> Dict:
-    """The sizes the program, the reference and the arithmetic share,
-    from a configuration file's (Hugging Face style) keys."""
-    for k, v in SUPPORTED.items():
-        if cfg.get(k, v) != v:
-            raise ValueError(f"configuration: {k}={cfg[k]!r} is not served "
-                             f"(only {v!r})")
-    serve = cfg["serve"]
-    window = cfg.get("sliding_window")
-    return {
-        "family": cfg["family"], "n_layers": cfg["num_hidden_layers"],
-        "d_model": cfg["hidden_size"], "d_ff": cfg["intermediate_size"],
-        "n_heads": cfg["num_attention_heads"],
-        "n_kv_heads": cfg["num_key_value_heads"], "head_dim": cfg["head_dim"],
-        "vocab_size": cfg["vocab_size"], "rope_theta": cfg["rope_theta"],
-        "norm_eps": cfg["rms_norm_eps"], "tie_embeddings": cfg["tie_word_embeddings"],
-        "sliding_window": window, "n_experts": cfg.get("num_local_experts", 0),
-        "top_k": cfg.get("num_experts_per_tok", 0), "dtype": cfg["torch_dtype"],
-        "max_batch": serve["max_batch"], "max_len": serve["max_len"],
-        "ring": min(serve["max_len"], window or serve["max_len"]),
-    }
+def load_architecture(root: Path, name: str):
+    """The module ``architectures/<name>.py`` (its interface:
+    ``architectures/decoder.py``), loaded once for each file."""
+    path = (Path(root) / "dcache_bench" / "architectures" / f"{name}.py").resolve()
+    if path not in _ARCHITECTURES:
+        if not path.is_file():
+            raise FileNotFoundError(f"no architecture {name!r} at {path}")
+        spec = importlib.util.spec_from_file_location(
+            f"dcache_bench_architecture_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _ARCHITECTURES[path] = mod
+    return _ARCHITECTURES[path]
 
 
 def quantity(name: str) -> str:
@@ -250,11 +245,13 @@ def power_limit() -> str:
 
 class Readings:
     """What a per-layer metric reader may read: the window's steps, the
-    traced steps and their trace, the sizes."""
+    traced steps and their trace, the sizes and the architecture that
+    counts their work."""
 
-    def __init__(self, sizes, steps, traced_steps, trace):
+    def __init__(self, sizes, steps, traced_steps, trace, arch=None):
         self.sizes, self.steps = sizes, steps
         self.traced_steps, self.trace = traced_steps, trace
+        self.arch = arch
 
 
 def traced(loop: Loop, seconds: float):
@@ -301,6 +298,7 @@ class Cell:
     sizes: Dict
     limits: Dict[str, float]
     ref: object         # the reference module
+    arch: object        # the architecture module
 
 
 def prepare(root: Path, workload: str) -> Cell:
@@ -309,9 +307,10 @@ def prepare(root: Path, workload: str) -> Cell:
     entry = find(spec["workloads"], workload, "workload")
     find(spec["configs"], entry["config"], "configuration")
     cfg = load_config(root, entry["config"])
+    arch = load_architecture(root, cfg["architecture"])
     return Cell(root, spec, entry, traffic.load_mix(root, entry["traffic"]),
-                sizes_of(cfg), judge.load_limits(root, workload),
-                judge.load_reference(root, cfg["reference"]))
+                arch.sizes(cfg), judge.load_limits(root, workload),
+                judge.load_reference(root, cfg["reference"]), arch)
 
 
 @dataclasses.dataclass
@@ -331,24 +330,25 @@ def serve(cell: Cell, seed: int, seconds: float, trace: bool, device,
     engine is freed before this returns, the weights are kept."""
     from dcache_bench import program
 
-    sizes, mix = cell.sizes, cell.mix
+    sizes, mix, arch = cell.sizes, cell.mix, cell.arch
     on_card = torch.device(device).type == "cuda"
-    need = (arith.weight_params(sizes) * arith.BF16_BYTES
-            + arith.ring_bytes(sizes, sizes["max_batch"], sizes["max_len"]))
+    need = (arch.weight_params(sizes) * arith.BF16_BYTES
+            + arch.cache_bytes(sizes, sizes["max_batch"], sizes["max_len"]))
     if on_card:
         torch.cuda.reset_peak_memory_stats()
         free = torch.cuda.mem_get_info()[0]
         if need >= free:
-            raise RuntimeError(f"{cell.entry['config']}: weights and ring need "
+            raise RuntimeError(f"{cell.entry['config']}: weights and cache need "
                                f"{need / 2**30:.2f} GiB, {free / 2**30:.2f} GiB free")
-    params = weights.make_params(sizes, seed, device)
+    params = arch.make_params(sizes, seed, device)
     if on_card:
         # part of setup_s: nvcc in a checkout's first run, a load after it
         t0 = time.perf_counter()
         built = program.load_kernels() is not None
         log(f"kernel library {'built by nvcc' if built else 'loaded'} in "
             f"{time.perf_counter() - t0:.3f} s, part of setup_s")
-    eng = program.engine(cell.entry["config"], sizes, params, device)
+    eng = program.engine(arch.model_fields(cell.entry["config"], sizes), sizes,
+                         params, device)
     warm_up(eng, mix, seed, device)
     loop = Loop(eng, mix, seed)
     for s in range(len(loop.streams)):
@@ -410,7 +410,7 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     result = {"correct": correct, "attempted": e2e["_calls"], "failed": 0}
     if trace:
         steps, tr = sv.trace
-        ctx = Readings(cell.sizes, sv.window_steps, steps, tr)
+        ctx = Readings(cell.sizes, sv.window_steps, steps, tr, cell.arch)
         metrics = {}
         for m in cell_metrics(cell.spec, workload, "per_layer"):
             v = readers[m["name"]](ctx)

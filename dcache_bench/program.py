@@ -1,32 +1,41 @@
 """The system under test: ``repro_torch``'s serving engine, and nothing else.
 
 This is the only module of the benchmark that imports the program. It
-turns a configuration file's sizes into the port's ``ModelConfig`` and
-builds the ``ServingEngine`` that the window drives through ``submit`` and
-``step``, the path by which ``TorchLLM`` serves every decision the agent
-makes.
+builds the port's ``ModelConfig`` from the plain fields an architecture
+gives (``architectures/<name>.py``'s ``model_fields``) and the
+``ServingEngine`` that the window drives through ``submit`` and ``step``,
+the path by which ``TorchLLM`` serves every decision the agent makes.
 """
 from __future__ import annotations
 
+import dataclasses
+import typing
 from typing import Dict, Optional
 
-from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import _build
 from repro_torch.models import mlp_moe
 from repro_torch.serving.engine import ServingEngine
 
 
-def model_config(name: str, sizes: Dict) -> ModelConfig:
-    moe = (MoEConfig(n_experts=sizes["n_experts"], top_k=sizes["top_k"],
-                     interleave=1) if sizes.get("n_experts") else None)
-    return ModelConfig(
-        name=name, family=sizes["family"], n_layers=sizes["n_layers"],
-        d_model=sizes["d_model"], n_heads=sizes["n_heads"],
-        n_kv_heads=sizes["n_kv_heads"], d_ff=sizes["d_ff"],
-        vocab_size=sizes["vocab_size"], head_dim=sizes["head_dim"],
-        rope_theta=sizes["rope_theta"], sliding_window=sizes.get("sliding_window"),
-        moe=moe, norm_eps=sizes["norm_eps"],
-        tie_embeddings=sizes["tie_embeddings"], dtype=sizes["dtype"])
+def _build_dataclass(cls, fields: Dict):
+    """``cls(**fields)``, with each dict value made into the dataclass that
+    its field declares (``moe: Optional[MoEConfig]`` from a dict)."""
+    hints = typing.get_type_hints(cls)
+    kw = {}
+    for k, v in fields.items():
+        if isinstance(v, dict):
+            kinds = [t for t in (hints[k], *typing.get_args(hints[k]))
+                     if dataclasses.is_dataclass(t)]
+            if not kinds:
+                raise TypeError(f"{cls.__name__}.{k} takes no dataclass")
+            v = _build_dataclass(kinds[0], v)
+        kw[k] = v
+    return cls(**kw)
+
+
+def model_config(fields: Dict) -> ModelConfig:
+    return _build_dataclass(ModelConfig, fields)
 
 
 def load_kernels() -> Optional[float]:
@@ -37,8 +46,8 @@ def load_kernels() -> Optional[float]:
     return _build.build_log.get("seconds")
 
 
-def engine(name: str, sizes: Dict, params: Dict, device) -> ServingEngine:
-    return ServingEngine(model_config(name, sizes), params,
+def engine(fields: Dict, sizes: Dict, params: Dict, device) -> ServingEngine:
+    return ServingEngine(model_config(fields), params,
                          max_batch=sizes["max_batch"], max_len=sizes["max_len"],
                          device=device)
 

@@ -15,7 +15,8 @@ TINY_CONFIGS = {
         "num_key_value_heads": 2, "head_dim": 16, "vocab_size": 300,
         "rope_theta": 10000.0, "rms_norm_eps": 1e-5, "hidden_act": "silu",
         "tie_word_embeddings": True, "torch_dtype": "bfloat16",
-        "serve": {"max_batch": 4, "max_len": 32}, "reference": "decoder"},
+        "serve": {"max_batch": 4, "max_len": 32}, "reference": "decoder",
+        "architecture": "decoder"},
     "tiny-moe": {
         "source": "test", "family": "moe", "num_hidden_layers": 2,
         "hidden_size": 64, "intermediate_size": 96, "num_attention_heads": 4,
@@ -23,7 +24,8 @@ TINY_CONFIGS = {
         "rope_theta": 1e6, "rms_norm_eps": 1e-5, "hidden_act": "silu",
         "tie_word_embeddings": False, "torch_dtype": "bfloat16",
         "sliding_window": None, "num_local_experts": 4, "num_experts_per_tok": 2,
-        "serve": {"max_batch": 4, "max_len": 32}, "reference": "decoder"},
+        "serve": {"max_batch": 4, "max_len": 32}, "reference": "decoder",
+        "architecture": "decoder"},
 }
 
 
@@ -54,7 +56,10 @@ def make_root(tmp: Path, cells=(("tiny-decide", "tiny-dense", "decide"),
     shutil.copytree(BENCH, root / "dcache_bench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
-    traffic_of = {w["name"]: w["traffic"] for w in spec["workloads"]}
+    family = {c["name"]: json.loads((REPO / c["file"]).read_text())["family"]
+              for c in spec["configs"]}
+    # a real cell's metrics go to the tiny cell of its traffic and family
+    kind_of = {w["name"]: (w["traffic"], family[w["config"]]) for w in spec["workloads"]}
     spec["configs"] = [{"name": n, "source": "test", "file": f"dcache_bench/configs/{n}.json",
                         "reduced": [], "why": "test"} for n in TINY_CONFIGS]
     for n, c in TINY_CONFIGS.items():
@@ -67,12 +72,12 @@ def make_root(tmp: Path, cells=(("tiny-decide", "tiny-dense", "decide"),
                                   "chips": 1, "why": "test"})
         (root / "dcache_bench" / "limits" / f"{cell}.json").write_text(
             json.dumps({"limits": TINY_LIMITS[mix]}))
-    # a metric of the real cells goes to the tiny cells of the same traffic
     for kind in ("end_to_end", "per_layer"):
         for m in spec[kind]:
             if "workloads" in m:
-                mixes = {traffic_of[w] for w in m["workloads"]}
-                m["workloads"] = [c for c, _, mix in cells if mix in mixes]
+                kinds = {kind_of[w] for w in m["workloads"]}
+                m["workloads"] = [c for c, cfg, mix in cells
+                                  if (mix, TINY_CONFIGS[cfg]["family"]) in kinds]
         spec[kind] = [m for m in spec[kind] if m.get("workloads", True)]
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
     return root

@@ -46,7 +46,7 @@ def test_control_reads_far_above_the_program(tmp_path):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("cell", ["granite-decide", "mixtral-react"])
+@pytest.mark.parametrize("cell", ["granite-decide", "mixtral-react", "mixtral-decide"])
 def test_control_fails_the_committed_limits_on_the_card(card, tmp_path, cell):
     out = tmp_path / "cal.jsonl"
     subprocess.run([sys.executable, str(REPO / "dcache_bench" / "calibrate.py"),

@@ -51,3 +51,19 @@ def test_no_source_under_the_benchmark_imports_jax():
     ref = re.compile(r"^\s*(import|from)\s+(repro_torch|dcache_bench)", re.M)
     for p in (BENCH / "reference").rglob("*.py"):
         assert not ref.search(p.read_text()), p
+
+
+def test_no_architecture_loads_the_program_or_jax():
+    archs = sorted((BENCH / "architectures").glob("*.py")) + [
+        BENCH / "tests" / "qk_norm" / "architecture.py"]
+    names = loaded_top_levels(
+        "import importlib.util\n"
+        f"for i, p in enumerate({[str(p) for p in archs]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'a{i}', p)\n"
+        "    m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m)\n"
+        "    assert callable(m.sizes) and callable(m.model_fields)\n")
+    assert "torch" in names and "dcache_bench" in names
+    assert not names & (FORBIDDEN | {"repro_torch"})
+    pat = re.compile(r"^\s*(import|from)\s+(repro_torch|jax|jaxlib|flax|repro)(\s|\.|$)", re.M)
+    for p in archs:
+        assert not pat.search(p.read_text()), p

@@ -9,6 +9,8 @@ from bench_tiny import REPO
 from dcache_bench import arith, harness
 from dcache_bench.trace import Event, Trace
 
+DECODER = harness.load_architecture(REPO, "decoder")
+
 SIZES = dict(n_layers=2, d_model=8, d_ff=16, n_heads=4, n_kv_heads=2, head_dim=4,
              vocab_size=10, tie_embeddings=True, sliding_window=None, ring=100,
              n_experts=0, top_k=0, max_batch=4)
@@ -47,13 +49,13 @@ def test_a_call_with_no_first_token_counts_its_wait():
 def test_attention_counts():
     assert arith.causal_pairs(4) == 10
     assert arith.causal_pairs(6, window=2) == 3 + 4 * 2
-    assert arith.decode_valid(9, ring=100) == 10
-    assert arith.decode_valid(500, ring=100) == 100
-    assert arith.decode_valid(500, ring=100, window=64) == 64
-    f, b = arith.prefill_attention(SIZES, 4)
+    assert DECODER.decode_valid(9, ring=100) == 10
+    assert DECODER.decode_valid(500, ring=100) == 100
+    assert DECODER.decode_valid(500, ring=100, window=64) == 64
+    f, b = DECODER.prefill_attention(SIZES, 4)
     assert f == 4 * 2 * 4 * 4 * 10
     assert b == 2 * 4 * (2 * 4 + 2 * 2) * 4 * 2
-    f, b = arith.decode_attention(SIZES, [3, 5])
+    f, b = DECODER.decode_attention(SIZES, [2, 4])      # 3 and 5 valid positions
     assert f == 4 * 2 * 4 * 4 * 8
     assert b == 2 * (8 * 2 * 2 * 4 * 2 + 2 * 2 * 4 * 4 * 2)
 
@@ -61,27 +63,29 @@ def test_attention_counts():
 def test_params_from_shapes():
     # granite-3-2b: 40 x (attention 10,485,760 + FFN 50,331,648 + norms)
     # + the tied 49,408 x 2,048 embedding + the final norm
-    s = harness.sizes_of(harness.load_config(REPO, "granite-3-2b"))
-    assert arith.weight_params(s) == 2_534_049_792
-    m = harness.sizes_of(harness.load_config(REPO, "mixtral-8x22b-8l"))
-    assert arith.weight_params(m) == 20_435_146_752
+    s = DECODER.sizes(harness.load_config(REPO, "granite-3-2b"))
+    assert DECODER.weight_params(s) == 2_534_049_792
+    m = DECODER.sizes(harness.load_config(REPO, "mixtral-8x22b-8l"))
+    assert DECODER.weight_params(m) == 20_435_146_752
     active = 2 * 8 * (2 * 6144 * 6144 + 2 * 6144 * 1024 + 2 * 3 * 6144 * 16384
                       + 6144 * 8)
-    assert arith.matmul_flops_per_token(m) == active
+    assert DECODER.matmul_flops_per_token(m) == active
 
 
 def test_model_flops_and_mfu():
-    mm, lg = arith.matmul_flops_per_token(SIZES), arith.logits_flops(SIZES)
+    mm, lg = DECODER.matmul_flops_per_token(SIZES), DECODER.logits_flops(SIZES)
     assert mm == 2 * 2 * (2 * 8 * 16 + 2 * 8 * 8 + 3 * 8 * 16)
-    got = arith.model_flops(SIZES, [4], [4, 5])
-    want = (4 * mm + lg + arith.attn_flops(SIZES, 10)
-            + 2 * (mm + lg) + arith.attn_flops(SIZES, 5 + 6))
+    got = DECODER.model_flops(SIZES, [4], [4, 5])
+    want = (4 * mm + lg + DECODER.attn_flops(SIZES, 10)
+            + 2 * (mm + lg) + DECODER.attn_flops(SIZES, 5 + 6))
     assert got == want
     step = harness.Step(0, 1, 2, 1, [4], [4, 5])
     tr = trace_of([("k", 0, 10)], window=(0, 1_000_000_000))
-    ctx = harness.Readings(SIZES, [step], [step], tr)
+    ctx = harness.Readings(SIZES, [step], [step], tr, DECODER)
     read = harness.load_metric(REPO, "step_mfu")
     assert read(ctx) == pytest.approx(100 * want / arith.PEAK_BF16_FLOPS)
+    # an architecture that counts no model FLOPs leaves the metric unread
+    assert read(harness.Readings(SIZES, [step], [step], tr)) is None
 
 
 def trace_of(device, window=(0, 1000), host=()):
@@ -124,23 +128,28 @@ def test_launches_and_device_time_by_host_range():
 def test_rooflines_count_true_work():
     sizes = dict(SIZES, n_layers=1)
     steps = [harness.Step(0, 1, 2, 1, [1000], [1000, 10])]
-    flops, nbytes = arith.prefill_attention(sizes, 1000)
+    flops, nbytes = DECODER.prefill_attention(sizes, 1000)
     least = arith.least_seconds(flops, nbytes)
     ns = int(4 * least * 1e9)
     tr = trace_of([("flash_kernel_fma", 0, ns)], window=(0, 10 ** 9))
     flash = harness.load_metric(REPO, "kernel.flash_roofline")
-    assert flash(harness.Readings(sizes, [], steps, tr)) == pytest.approx(100 * least / (ns / 1e9))
+    assert flash(harness.Readings(sizes, [], steps, tr, DECODER)) == pytest.approx(
+        100 * least / (ns / 1e9))
     assert ns < 4 * least * 1e9 + 1
-    f, b = arith.decode_attention(sizes, [100, 11])     # the ring holds 100
+    f, b = DECODER.decode_attention(sizes, [1000, 10])  # the ring holds 100
     least = arith.least_seconds(f, b)
     ns = int(2 * least * 1e9)
     tr = trace_of([("decode_kernel<64>", 0, ns)], window=(0, 10 ** 9))
     dec = harness.load_metric(REPO, "kernel.decode_attention_roofline")
-    assert dec(harness.Readings(sizes, [], steps, tr)) == pytest.approx(100 * least / (ns / 1e9))
+    assert dec(harness.Readings(sizes, [], steps, tr, DECODER)) == pytest.approx(
+        100 * least / (ns / 1e9))
     # nothing to read: no value rather than 0
     empty = trace_of([], window=(0, 10 ** 9))
-    assert flash(harness.Readings(sizes, [], steps, empty)) is None
-    assert dec(harness.Readings(sizes, [], steps, empty)) is None
+    assert flash(harness.Readings(sizes, [], steps, empty, DECODER)) is None
+    assert dec(harness.Readings(sizes, [], steps, empty, DECODER)) is None
+    # nor without an architecture to count the work
+    assert flash(harness.Readings(sizes, [], steps, tr)) is None
+    assert dec(harness.Readings(sizes, [], steps, tr)) is None
 
 
 def test_engine_readings():

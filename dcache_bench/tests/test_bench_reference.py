@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from bench_tiny import make_root
-from dcache_bench import harness, judge, weights
+from dcache_bench import harness, judge
 
 
 def fp32_root(tmp_path):
@@ -24,8 +24,9 @@ def fp32_root(tmp_path):
 
 @pytest.mark.parametrize("cell", ["tiny-decide", "tiny-react"])
 def test_served_tokens_are_the_references_best(tmp_path, monkeypatch, cell):
-    monkeypatch.setitem(harness.SUPPORTED, "torch_dtype", "float32")
     root = fp32_root(tmp_path)
+    monkeypatch.setitem(harness.load_architecture(root, "decoder").SUPPORTED,
+                        "torch_dtype", "float32")
     c = harness.prepare(root, cell)
     sv = harness.serve(c, 11, 3.0, False, "cpu", 0.0)
     sample = judge.sample(sv.finished, 11, 80)
@@ -48,12 +49,12 @@ def test_capacity_rule_equals_the_ports(tmp_path, tokens):
 
     c = harness.prepare(make_root(tmp_path), "tiny-react")
     sizes = dict(c.sizes, dtype="float32")
-    p = weights.make_params(sizes, 5, "cpu")["layers"][0]["moe"]
+    p = c.arch.make_params(sizes, 5, "cpu")["layers"][0]["moe"]
     # correlated tokens, as a prompt's are, so some experts overflow
     g = torch.Generator().manual_seed(1)
     x = (torch.randn(8, sizes["d_model"], generator=g)[torch.randint(0, 8, (tokens,), generator=g)]
          + 0.1 * torch.randn(tokens, sizes["d_model"], generator=g))
-    cfg = program.model_config("t", sizes)
+    cfg = program.model_config(c.arch.model_fields("t", sizes))
     T = mlp_moe.GROUP_TOKENS if tokens % mlp_moe.GROUP_TOKENS == 0 else tokens
     dispatch, _, _ = mlp_moe._routing(p, cfg, x.reshape(tokens // T, T, -1))
     port = dispatch.sum(-1).reshape(tokens, -1) > 0            # (token, expert) kept

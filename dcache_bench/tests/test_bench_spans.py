@@ -143,10 +143,11 @@ def test_expert_roofline_counts_true_routed_work(recorded):
     least = (arith.least_seconds(5 * 2 * 6 * 8 * 16, weights)
              + arith.least_seconds(2 * 2 * 6 * 8 * 16, weights))
     read = harness.load_metric(REPO, "moe.expert_roofline")
-    got = read(harness.Readings(sizes, [], steps, tr))
+    decoder = harness.load_architecture(REPO, "decoder")
+    got = read(harness.Readings(sizes, [], steps, tr, decoder))
     assert got == pytest.approx(100 * least / 90e-9, rel=1e-12)
     # a dense model has no experts
-    assert read(harness.Readings(SIZES, [], steps, tr)) is None
+    assert read(harness.Readings(SIZES, [], steps, tr, decoder)) is None
 
 
 def test_spans_attribute_launches_as_the_harness_ranges_do(recorded):
