@@ -13,6 +13,16 @@ configuration's architecture (its sizes, weights, the port's
 configuration, an architecture or a metric adds files and edits none of
 these.
 
+A cell reports every ``end_to_end`` entry that lists it under
+``workloads`` and every entry with no ``workloads`` key: ``call_p95_ms``,
+``ttft_p95_ms``, ``tpot_p95_ms``, ``calls_per_s`` and ``setup_s``. A cell
+added as new files and appended ``configs``, ``workloads`` and
+``per_layer`` entries, with no ``end_to_end`` entry, reports only those
+five; its per-layer entries are ``<metric>.<cell>`` and move the unsuffixed
+names. Entries named for a cell, ``<quantity>.<cell>``, read the same
+quantity under a tighter bound fitted to that cell; ``end_to_end`` holds
+at most 16 entries in all.
+
 A run:
 
 1. set-up (``setup_s``, from process start): the weights made on the
@@ -95,9 +105,11 @@ def load_architecture(root: Path, name: str):
 
 
 def quantity(name: str) -> str:
-    """What a metric named for its cell reads: ``call_p95_ms.granite-decide``
+    """What a metric named for its cell reads: ``call_p95_ms.mixtral-decide``
     is ``call_p95_ms`` in that cell, held to a bound of its own; a name with
-    no dot (``setup_s``) is its own quantity."""
+    no dot (``setup_s``, ``call_p95_ms``) is its own quantity, and an
+    ``end_to_end`` entry of that name with no ``workloads`` key is reported
+    by every cell, including one added with no ``end_to_end`` entry."""
     return name.rsplit(".", 1)[0]
 
 

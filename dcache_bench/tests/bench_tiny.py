@@ -38,6 +38,24 @@ TINY_LIMITS = {"decide": {"gap_max": 0.2, "gap_mean": 0.01},
                "react": {"gap_mean": 0.05, "miss_share": 12.0}}
 
 
+# the end-to-end quantities every cell reports: one entry each with no
+# ``workloads`` key, so a cell added with no end_to_end entry reports them
+EVERY_CELL = ("call_p95_ms", "ttft_p95_ms", "tpot_p95_ms", "calls_per_s", "setup_s")
+
+
+def assert_appended_only(accepted: dict, spec: dict) -> None:
+    """``spec`` differs from ``accepted`` only by entries appended to its
+    lists, and its ``end_to_end`` not at all: how a cell joins as files
+    alone."""
+    assert set(spec) == set(accepted)
+    assert spec["end_to_end"] == accepted["end_to_end"]
+    for key, value in accepted.items():
+        if isinstance(value, list):
+            assert spec[key][:len(value)] == value, key
+        else:
+            assert spec[key] == value, key
+
+
 def tiny_mix(name: str) -> dict:
     mix = json.loads((BENCH / "mixes" / f"{name}.json").read_text())
     mix.update(sessions=4, trace_seconds=0.5, check_tokens=80)

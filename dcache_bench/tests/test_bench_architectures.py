@@ -9,7 +9,8 @@ import shutil
 import pytest
 import torch
 
-from bench_tiny import BENCH, REPO, TINY_CONFIGS, TINY_LIMITS, make_root
+from bench_tiny import (BENCH, EVERY_CELL, REPO, TINY_CONFIGS, TINY_LIMITS,
+                        assert_appended_only, make_root)
 from dcache_bench import harness, program, spans
 from dcache_bench.trace import Event, Trace
 from repro_torch.configs.base import ModelConfig, MoEConfig
@@ -149,8 +150,9 @@ CELL = "tiny-qk-decide"
 
 def add_qk_norm_cell(root, reference_text=None):
     """The qk-norm decoder and a cell on it, added to ``root`` as files and
-    BENCHMARK.json entries alone; returns every file there was before,
-    with its bytes."""
+    appended ``configs``, ``workloads`` and ``per_layer`` entries alone (no
+    ``end_to_end`` entry: the cell reports the unsuffixed ones); returns
+    every file there was before, with its bytes."""
     bench = root / "dcache_bench"
     before = {p: p.read_bytes() for p in bench.rglob("*") if p.is_file()}
     shutil.copy(QK_NORM / "architecture.py", bench / "architectures" / "qk_norm_decoder.py")
@@ -160,21 +162,18 @@ def add_qk_norm_cell(root, reference_text=None):
                reference="qk_norm_decoder")
     (bench / "configs" / "tiny-qk-norm.json").write_text(json.dumps(cfg))
     (bench / "limits" / f"{CELL}.json").write_text(json.dumps({"limits": TINY_LIMITS["decide"]}))
-    spec = json.loads((root / "BENCHMARK.json").read_text())
+    accepted = json.loads((root / "BENCHMARK.json").read_text())
+    spec = json.loads(json.dumps(accepted))
     spec["configs"].append({"name": "tiny-qk-norm", "source": "test",
                             "file": "dcache_bench/configs/tiny-qk-norm.json",
                             "reduced": [], "why": "test"})
     spec["workloads"].append({"name": CELL, "config": "tiny-qk-norm",
                               "traffic": "tiny-decide", "chips": 1, "why": "test"})
-    for q, unit, better in (("calls_per_s", "calls/s", "higher"),
-                            ("call_p95_ms", "ms", "lower")):
-        spec["end_to_end"].append({"name": f"{q}.{CELL}", "unit": unit, "better": better,
-                                   "bound": 0.25, "source": "host_clock",
-                                   "workloads": [CELL]})
     for q in ("step_mfu", "engine.slot_occupancy", "kernel.flash_roofline"):
         spec["per_layer"].append({"name": f"{q}.{CELL}", "unit": "%", "better": "higher",
                                   "source": "device_trace", "layer": "test",
-                                  "moves": f"calls_per_s.{CELL}", "workloads": [CELL]})
+                                  "moves": "calls_per_s", "workloads": [CELL]})
+    assert_appended_only(accepted, spec)
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
     return before
 
@@ -196,6 +195,11 @@ def test_an_architecture_added_as_files_alone_is_served(tmp_path):
     assert r["correct"], r["check"]
     assert r["metrics"][f"step_mfu.{CELL}"]["value"] > 0
     assert f"kernel.flash_roofline.{CELL}" not in r["metrics"]    # no flash kernel on the CPU
+    # untraced, the cell reports the end-to-end entries with no workloads key
+    r = harness.run(root, CELL, 4, 1.0, trace=False, device="cpu")
+    assert r["correct"], r["check"]
+    assert set(r["metrics"]) == set(EVERY_CELL)
+    assert all(v["value"] > 0 for v in r["metrics"].values())
 
 
 def _leaves(x):

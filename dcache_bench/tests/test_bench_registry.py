@@ -10,7 +10,7 @@ import types
 
 import pytest
 
-from bench_tiny import REPO, make_root
+from bench_tiny import EVERY_CELL, REPO, assert_appended_only, make_root
 from dcache_bench import harness, traffic
 
 SPEC = json.loads((REPO / "BENCHMARK.json").read_text())
@@ -27,6 +27,14 @@ def test_top_level_keys_and_paths():
     # a full check of 24 cells fits its 43,200 s
     assert (2 + 14 * 24) * (SPEC["run_seconds"] + 60) + 24 * 180 + 1200 <= 43200
     assert len(json.dumps(SPEC)) < 64 * 1024
+
+
+def test_list_lengths_keep_to_the_contract():
+    assert 1 <= len(SPEC["configs"]) <= 24
+    assert 1 <= len(SPEC["workloads"]) <= 24
+    assert 1 <= len(SPEC["end_to_end"]) <= 16
+    assert 1 <= len(SPEC["per_layer"]) <= 128
+    assert all(len(c["reduced"]) <= 16 for c in SPEC["configs"])
 
 
 def test_names_units_and_entries():
@@ -79,6 +87,54 @@ def test_every_cell_resolves(cell):
         assert m["moves"] in e2e
 
 
+@pytest.mark.parametrize("q", EVERY_CELL)
+def test_each_quantity_has_one_entry_for_every_cell(q):
+    entries = [m for m in SPEC["end_to_end"] if m["name"] == q]
+    assert len(entries) == 1 and "workloads" not in entries[0]
+    assert entries[0]["bound"] == 0.25 and entries[0]["source"] == "host_clock"
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
+def test_every_cell_reports_the_unsuffixed_quantities(cell):
+    names = [m["name"] for m in harness.cell_metrics(SPEC, cell, "end_to_end")]
+    assert set(EVERY_CELL) <= set(names)
+    # any other entry is named for the cell and reads one of the same quantities
+    for n in set(names) - set(EVERY_CELL):
+        assert n.endswith(f".{cell}") and harness.quantity(n) in EVERY_CELL, n
+
+
+def test_a_cell_entry_is_tighter_than_the_every_cell_one():
+    # an entry named for a cell that only repeated its unsuffixed namesake's
+    # bound would spend one of the 16 end_to_end places on nothing
+    every = {m["name"]: m for m in SPEC["end_to_end"] if "workloads" not in m}
+    for m in SPEC["end_to_end"]:
+        if "workloads" in m:
+            q = every[harness.quantity(m["name"])]
+            assert m["bound"] < q["bound"], m["name"]
+            assert (m["unit"], m["better"], m["source"]) == (q["unit"], q["better"], q["source"])
+
+
+# each tiny cell and the real cell whose ``<quantity>.<cell>`` entries it takes
+# (granite-decide has none: the unsuffixed entries hold it at its bound)
+NAMESAKES = {"tiny-decide": None, "tiny-react": "mixtral-react",
+             "tiny-moe-decide": "mixtral-decide"}
+
+
+@pytest.mark.parametrize("cell", ["tiny-decide", "tiny-react", "tiny-moe-decide"])
+def test_unsuffixed_metrics_equal_their_cells_namesakes(tmp_path, cell):
+    root = make_root(tmp_path, cells=(("tiny-decide", "tiny-dense", "decide"),
+                                      ("tiny-react", "tiny-moe", "react"),
+                                      ("tiny-moe-decide", "tiny-moe", "decide")))
+    r = harness.run(root, cell, 2 ** 33 + 11, 1.0, trace=False, device="cpu")
+    assert r["correct"], r["check"]
+    got = r["metrics"]
+    real = NAMESAKES[cell]
+    named = {f"{q}.{real}" for q in EVERY_CELL if q != "setup_s"} if real else set()
+    assert set(got) == set(EVERY_CELL) | named
+    for k in named:
+        assert got[k] == got[harness.quantity(k)], k
+
+
 def test_a_metric_named_for_its_cell_reads_its_quantity():
     assert harness.quantity("call_p95_ms.granite-decide") == "call_p95_ms"
     assert harness.quantity("step_mfu.mixtral-react") == "step_mfu"
@@ -96,7 +152,7 @@ def test_new_files_are_found_by_name(tmp_path):
     bench = root / "dcache_bench"
     before = {p: p.read_bytes() for p in bench.rglob("*") if p.is_file()}
     # one new configuration, mix, limit and metric: files only, plus their
-    # entries in BENCHMARK.json
+    # entries appended to configs, workloads and per_layer (none to end_to_end)
     cfg = json.loads((bench / "configs" / "tiny-dense.json").read_text())
     cfg["num_hidden_layers"] = 3
     (bench / "configs" / "tiny-dense-3l.json").write_text(json.dumps(cfg))
@@ -107,18 +163,17 @@ def test_new_files_are_found_by_name(tmp_path):
         json.dumps({"limits": {"gap_max": 0.5, "gap_mean": 0.05}}))
     (bench / "metrics" / "engine.steps.py").write_text(
         "def read(ctx):\n    return float(len(ctx.steps))\n")
-    spec = json.loads((root / "BENCHMARK.json").read_text())
+    accepted = json.loads((root / "BENCHMARK.json").read_text())
+    spec = json.loads(json.dumps(accepted))
     spec["configs"].append({"name": "tiny-dense-3l", "source": "test",
                             "file": "dcache_bench/configs/tiny-dense-3l.json",
                             "reduced": [], "why": "test"})
     spec["workloads"].append({"name": "new-cell", "config": "tiny-dense-3l",
                               "traffic": "short-answers", "chips": 1, "why": "test"})
-    spec["end_to_end"].append({"name": "calls_per_s.new-cell", "unit": "calls/s",
-                               "better": "higher", "bound": 0.05, "source": "host_clock",
-                               "workloads": ["new-cell"]})
     spec["per_layer"].append({"name": "engine.steps", "unit": "steps", "better": "higher",
                               "source": "program_counter", "layer": "engine",
-                              "moves": "calls_per_s.new-cell", "workloads": ["new-cell"]})
+                              "moves": "calls_per_s", "workloads": ["new-cell"]})
+    assert_appended_only(accepted, spec)
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
     after = {p: p.read_bytes() for p in before}
     assert after == before
@@ -128,6 +183,10 @@ def test_new_files_are_found_by_name(tmp_path):
     assert "engine.steps" in names and "moe.expert_device_share" not in names
     r = harness.run(root, "new-cell", 3, 2.0, trace=True, device="cpu")
     assert r["correct"] and r["metrics"]["engine.steps"]["value"] > 0
+    # untraced, it reports the end-to-end entries with no workloads key
+    r = harness.run(root, "new-cell", 4, 1.0, trace=False, device="cpu")
+    assert r["correct"], r["check"]
+    assert set(r["metrics"]) == set(EVERY_CELL)
 
 
 def test_missing_files_are_refused(tmp_path):
