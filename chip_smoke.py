@@ -45,7 +45,12 @@ Phases (any failure exits non-zero; nothing is caught):
      reduced head dim 16 and a q view off 16 bytes (its scalar path), each
      logged bit for bit or not. A misaligned view of an attention (bf16 or
      int8) or WKV input, or of a ring rope_append writes, must raise and
-     launch nothing; so must rope at an odd head dim. Time kernel, plain version and the library call
+     launch nothing; so must rope at an odd head dim; decode attention at
+     the benchmark cells' decode steps (SERVED_DECODE: granite-decide's,
+     mixtral-decide's and mixtral-react's batch of 32, each row at its own
+     position; a ragged mixtral-decide batch with pos 0, ~2,000, C - 1 and a
+     wrapped row; the int8 kernel at mixtral-decide's shape), bf16, held
+     also row by row relative to each row's size. Time kernel, plain version and the library call
      (CUDA events, median of 50) at each served path's shapes (dcache,
      qwen3-4b, phi3-mini-3.8b, qwen1.5-32b's decode, mixtral's G 6,
      llama4's G 5 and llava's G 7 at d 128, seamless's MHA at d 64),
@@ -56,7 +61,9 @@ Phases (any failure exits non-zero; nothing is caught):
      and G 64 (d 64, also int8) in two group tiles, WKV and the per-head
      rmsnorm at the reduced rwkv6's head dim 16 (and WKV at 32), rope at
      ROPE_SHAPES (with the launch API calls a call of kernel and plain
-     version make), and an empty kernel (the launch floor);
+     version make), decode attention at SERVED_DECODE's steps (kernel and
+     bound only, with the blocks an SM and the clusters the card holds at
+     once), and an empty kernel (the launch floor);
   3. serve twelve paths at full width in bf16, each with random weights from
      a seeded torch.Generator, through ServingEngine(max_batch=4,
      max_len=512) (8 prompts x 32 new tokens) and then one
@@ -471,6 +478,9 @@ def check_kernels(errs):
         check_misaligned(gen, dtype)
         check_refused(gen, dtype)
     t0 = time.perf_counter()
+    check_served_decode(gen, errs)
+    log(f"  served decode steps: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     check_wkv(errs)
     log(f"  wkv at head dims {sorted(hd for hd, _ in WKV_HEADS)}: "
         f"{time.perf_counter() - t0:.1f} s")
@@ -482,8 +492,8 @@ def check_attention(gen, dtype, d, Hq, Hkv, errs):
     under causal, window, chunk and no mask; decode rings of 64, 100 (not a
     multiple of the 8 splits, the last range short), 256 (seamless's
     cross-attention ring of encoder frames at pos = C - 1) and 512 slots (pos in
-    {0, 1, 63, 64}: whole splits masked or empty), with windows and chunks
-    and a window that ends inside a split."""
+    {0, 1, 63, 64}: blocks with empty pieces), with windows and chunks
+    and a window that ends inside a split by capacity's range."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention_plain
@@ -585,6 +595,78 @@ def check_group16(gen, dtype, errs):
         compare("decode_attention", f"G=16 C={C} window48",
                 ops.decode_attention(q, kc, vc, p, window=48),
                 decode_attention_plain(q, kc, vc, p, window=48), dtype, errs)
+
+
+# the benchmark cells' decode steps in bf16: (name, B, Hq, Hkv, d, C, lowest
+# pos, highest pos); each row of the batch at its own position
+SERVED_DECODE = (("granite decide", 32, 32, 8, 64, 4096, 1164, 2252),
+                 ("mixtral decide", 32, 48, 8, 128, 16384, 1164, 2741),
+                 ("mixtral react", 32, 48, 8, 128, 16384, 5197, 7751))
+
+
+def served_pos(gen, B, C, lo, hi, ragged=False):
+    """(B,) int32 positions drawn in [lo, hi]; ``ragged`` replaces the
+    first rows by pos 0, ~2,000, C - 1 and a wrapped row (2C + 37)."""
+    pos = torch.randint(lo, hi + 1, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    if ragged:
+        pos[:4] = torch.tensor([0, 1999, C - 1, 2 * C + 37], dtype=torch.int32)
+    return pos
+
+
+def served_ring(gen, B, C, Hkv, d, dtype, int8=False):
+    """The model's ring views (B,Hkv,C,d) of a (B,C,Hkv*d) cache, and for
+    ``int8`` its codes with their (B,Hkv,C) scales: (k, v, k_scale,
+    v_scale)."""
+    if int8:
+        _, _, k, ks = int8_ring(gen, B, C, Hkv, d, dtype)
+        _, _, v, vs = int8_ring(gen, B, C, Hkv, d, dtype)
+        return k, v, ks, vs
+    k = randn(gen, B, C, Hkv * d, dtype=dtype).view(B, C, Hkv, d).transpose(1, 2)
+    v = randn(gen, B, C, Hkv * d, dtype=dtype).view(B, C, Hkv, d).transpose(1, 2)
+    return k, v, None, None
+
+
+def check_served_decode(gen, errs):
+    """Decode attention at the three cells' served steps (SERVED_DECODE), a
+    ragged mixtral-decide batch (pos 0, ~2,000, C - 1 and a wrapped row
+    among the drawn ones) and the int8 kernel at mixtral-decide's shape,
+    in bf16 against the plain version (4 rows at a time: its fp32 copy of
+    the ring per query head), held absolutely and row by row relative to
+    each row's size (outputs of a ~2,000-slot softmax are about the
+    absolute tolerance)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_int8_plain, decode_attention_plain)
+
+    dt = torch.bfloat16
+    cases = [(name, B, Hq, Hkv, d, C, lo, hi, False, False)
+             for name, B, Hq, Hkv, d, C, lo, hi in SERVED_DECODE]
+    _, B, Hq, Hkv, d, C, lo, hi = SERVED_DECODE[1]
+    cases += [("mixtral decide ragged", B, Hq, Hkv, d, C, lo, hi, True, False),
+              ("mixtral decide int8", B, Hq, Hkv, d, C, lo, hi, False, True)]
+    for name, B, Hq, Hkv, d, C, lo, hi, ragged, int8 in cases:
+        k, v, ks, vs = served_ring(gen, B, C, Hkv, d, dt, int8)
+        q = randn(gen, B, Hq, d, dtype=dt)
+        pos = served_pos(gen, B, C, lo, hi, ragged)
+        with torch.no_grad():
+            if int8:
+                out = ops.decode_attention_int8(q, k, v, ks, vs, pos)
+                gold = torch.cat([decode_attention_int8_plain(
+                    q[i:i + 4], k[i:i + 4], v[i:i + 4], ks[i:i + 4], vs[i:i + 4],
+                    pos[i:i + 4]) for i in range(0, B, 4)])
+            else:
+                out = ops.decode_attention(q, k, v, pos)
+                gold = torch.cat([decode_attention_plain(
+                    q[i:i + 4], k[i:i + 4], v[i:i + 4], pos[i:i + 4])
+                    for i in range(0, B, 4)])
+        kernel = "decode_attention_int8" if int8 else "decode_attention"
+        case = (f"served {name}: q ({B},{Hq},{d}), ring {C}, pos "
+                f"{int(pos.min())}-{int(pos.max())}")
+        compare(kernel, case, out, gold, dt, errs)
+        compare_rows(kernel, case, out, gold, dt)
+        del k, v, ks, vs, out, gold
+        torch.cuda.empty_cache()
 
 
 # (Hq, Hkv) past one block's heads: G 40 (two tiles of 20), G 64 (MQA, two
@@ -898,57 +980,64 @@ def check_wkv(errs):
             same_state(f"B=4 S=1 s0 in place {name}", state, sp)
 
 
-def time_decode(gen, B, Hq, Hkv, C, d, int8=False, pos=None):
+def time_decode(gen, B, Hq, Hkv, C, d, int8=False, pos=None, plain=True):
     """Decode attention (or its int8 variant) in bf16 at a decode step over
-    a full ring of C slots (``pos`` (B,) given, or past the ring's end):
-    kernel, plain version, SDPA (bf16 only), the kernel's profiled device
-    time and its bound."""
+    a ring of C slots, by default full (rows past the ring's end), or at
+    ``pos`` ((B,) positions): kernel, plain version and SDPA (bf16 only;
+    neither without ``plain``, at a served step's shape, where the plain
+    version would copy the ring to fp32 per query head and SDPA read all of
+    it), the kernel's profiled device time, its bound (each row's valid
+    slots read once) and the card's residency (blocks an SM, clusters at
+    once)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (
         decode_attention_int8_plain, decode_attention_plain, group_tiles,
-        max_heads, split_geometry)
+        max_heads, occupancy, split_geometry)
 
     dt, es = torch.bfloat16, 2
     n_gt, gt = group_tiles(Hq // Hkv, max_heads(dt, d, int8=int8))
     q = randn(gen, B, Hq, d, dtype=dt)
-    pos = torch.tensor(pos or [C + 3, C + 40, 2 * C + 5, 3 * C][:B],
-                       dtype=torch.int32, device="cuda")
+    full = pos is None
+    pos = torch.as_tensor([C + 3, C + 40, 2 * C + 5, 3 * C][:B] if full else pos,
+                          dtype=torch.int32, device="cuda")
     valid = sum(min(int(p) + 1, C) for p in pos)
-    n_split, per = split_geometry(C)
+    pieces = split_geometry(C, int(pos[0]))
+    res = occupancy(Hkv, C, Hq // Hkv, d, dt, int8=int8)
+    k, v, ks, vs = served_ring(gen, B, C, Hkv, d, dt, int8)
+    grid = (f"grid ({len(pieces)},{Hkv * n_gt},{B}), clusters of {len(pieces)}, "
+            f"row 0's {sum(n for _, n in pieces)} valid slots in pieces of "
+            f"{pieces[0][1]}, {n_gt} group tile(s) of {gt} heads, "
+            f"{res['smem_bytes']} B shared a block, {res['blocks_per_sm']} "
+            f"blocks an SM, {res['clusters_resident']} clusters at once")
+    where = "full ring" if full else f"pos {int(pos.min())}-{int(pos.max())}"
+    lib_ms = lib_us = plain_ms = None
     if int8:
-        _, _, k, ks = int8_ring(gen, B, C, Hkv, d, dt)
-        _, _, v, vs = int8_ring(gen, B, C, Hkv, d, dt)
         # q read and out written in bf16, one byte a code, es bytes a scale
         nb = 2 * q.numel() * es + 2 * valid * Hkv * (d + es) + pos.numel() * 4
         run = lambda: ops.decode_attention_int8(q, k, v, ks, vs, pos)  # noqa: E731
-        plain = lambda: decode_attention_int8_plain(q, k, v, ks, vs, pos)  # noqa: E731
+        ref = lambda: decode_attention_int8_plain(q, k, v, ks, vs, pos)  # noqa: E731
         shape = (f"q ({B},{Hq},{d}) bf16, int8 cache ({B},{C},{Hkv * d}) + bf16 "
-                 f"scales ({B},{C},{Hkv}), full ring; grid ({n_split},"
-                 f"{Hkv * n_gt},{B}), {n_gt} group tile(s) of {gt} heads")
-        lib_ms = lib_us = None
+                 f"scales ({B},{C},{Hkv}), {where}; {grid}")
     else:
-        kc = randn(gen, B, C, Hkv * d, dtype=dt)
-        vc = randn(gen, B, C, Hkv * d, dtype=dt)
-        k = kc.view(B, C, Hkv, d).transpose(1, 2)
-        v = vc.view(B, C, Hkv, d).transpose(1, 2)
         nb = (2 * q.numel() + 2 * valid * Hkv * d) * es + pos.numel() * 4
         run = lambda: ops.decode_attention(q, k, v, pos)  # noqa: E731
-        plain = lambda: decode_attention_plain(q, k, v, pos)  # noqa: E731
-        shape = (f"q ({B},{Hq},{d}), cache ({B},{C},{Hkv * d}) bf16, full ring; "
-                 f"grid ({n_split},{Hkv * n_gt},{B}), clusters of {n_split}, {per} "
-                 f"slots each, {n_gt} group tile(s) of {gt} heads")
-        kk, vv, qq = k.contiguous(), v.contiguous(), q[:, :, None]
-        mask = torch.ones((B, 1, 1, C), dtype=torch.bool, device="cuda")
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qq, kk, vv, attn_mask=mask, enable_gqa=True)
-        lib_ms, lib_us = time_ms(sdpa), all_device_us(sdpa)
+        ref = lambda: decode_attention_plain(q, k, v, pos)  # noqa: E731
+        shape = f"q ({B},{Hq},{d}), cache ({B},{C},{Hkv * d}) bf16, {where}; {grid}"
+        if plain:
+            kk, vv, qq = k.contiguous(), v.contiguous(), q[:, :, None]
+            mask = torch.ones((B, 1, 1, C), dtype=torch.bool, device="cuda")
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qq, kk, vv, attn_mask=mask, enable_gqa=True)
+            lib_ms, lib_us = time_ms(sdpa), all_device_us(sdpa)
+    if plain:
+        plain_ms = time_ms(ref)
     b, by = bound_ms(nb, 4 * valid * Hq * d, dt)
     needle = "decode_int8_kernel" if int8 else "decode_kernel"
-    return dict(shape=shape, ms=time_ms(run), plain_ms=time_ms(plain),
+    return dict(shape=shape, ms=time_ms(run), plain_ms=plain_ms,
                 library_ms=lib_ms, library_device_us=lib_us,
                 device_us=kernel_device_us(device_profile(run, 20)[0], needle),
-                bound_ms=b, bound_by=by)
+                bound_ms=b, bound_by=by, **res)
 
 
 def time_flash(gen, Hq, Hkv, S, d, causal=True):
@@ -1060,6 +1149,20 @@ def time_kernels():
     rows["decode_attention_g64_d64"] = time_decode(gen, 4, 64, 1, 512, 64)
     rows["decode_attention_int8_g64_d64"] = time_decode(gen, 4, 64, 1, 512, 64,
                                                         int8=True)
+    # the benchmark cells' decode steps (SERVED_DECODE), each row at its own
+    # position, a ragged mixtral-decide batch and the int8 kernel there
+    for name, B, Hq, Hkv, d, C, lo, hi in SERVED_DECODE:
+        key = "decode_attention_served_" + name.replace(" ", "_")
+        rows[key] = time_decode(gen, B, Hq, Hkv, C, d,
+                                pos=served_pos(gen, B, C, lo, hi), plain=False)
+        if name == "mixtral decide":
+            rows[key + "_ragged"] = time_decode(
+                gen, B, Hq, Hkv, C, d, pos=served_pos(gen, B, C, lo, hi, True),
+                plain=False)
+            rows[key + "_int8"] = time_decode(
+                gen, B, Hq, Hkv, C, d, int8=True, pos=served_pos(gen, B, C, lo, hi),
+                plain=False)
+        torch.cuda.empty_cache()
 
     # prefill attention at the commonest prompt bucket (B=1, S=64, causal)
     # and at the engine's max_len (S=512), at each served config's heads
@@ -1147,8 +1250,9 @@ def time_kernels():
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else (
             f"{r['library_ms']:.4f} ms (device {r['library_device_us']:.2f} us)")
+        plain = "not timed" if r["plain_ms"] is None else f"{r['plain_ms']:.4f} ms"
         log(f"  time {name} [{r['shape']}]: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {lib}, device "
+            f"{plain}, library {lib}, device "
             f"(profiler) {r['device_us']:.2f} us, bound "
             f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
     return rows

@@ -11,7 +11,9 @@ this checkout's kernels and each DIR into a library of its own, and each
 tree's ptxas registers and spills are printed. For each DIR the order is
 DIR, this tree, this tree, DIR. Each entry is the kernel's device time per
 launch from ``torch.profiler`` (mean over 50 calls), in bf16, at the served
-shapes and a few others, for all four kernels. Each output is checked
+shapes and a few others, for all four kernels; decode attention also at the
+benchmark cells' decode steps (``chip_smoke.SERVED_DECODE``), and the int8
+decode kernel at mixtral-decide's. Each output is checked
 against this tree's output: attention within 2e-2 absolute; rmsnorm and
 the WKV y within 2e-2 absolute and relative, as chip_smoke.py holds them
 (two correct sum orders can round a value to bf16 one ulp apart: 0.25 at
@@ -86,6 +88,27 @@ def cases():
         out.append((f"decode_attention C={C} {what}",
                     lambda q=q, k=k, v=v, p=p: ops.decode_attention(q, k, v, p),
                     "decode_kernel", ((2e-2, 0.0),)))
+    # the benchmark cells' decode steps (chip_smoke.SERVED_DECODE), each row
+    # at its own position, a ragged mixtral-decide batch (pos 0, ~2,000,
+    # C - 1 and a wrapped row among them) and the int8 kernel there
+    from chip_smoke import SERVED_DECODE, served_pos, served_ring
+    for name, Bs, Hqs, Hkvs, ds, C, lo, hi in SERVED_DECODE:
+        variants = [("", False, False)]
+        if name == "mixtral decide":
+            variants += [(" ragged", True, False), (" int8", False, True)]
+        for tag, ragged, int8 in variants:
+            k, v, ks, vs = served_ring(gen, Bs, C, Hkvs, ds, dt, int8)
+            q = torch.randn((Bs, Hqs, ds), generator=gen, device="cuda").to(dt)
+            p = served_pos(gen, Bs, C, lo, hi, ragged)
+            if int8:
+                fn = lambda q=q, k=k, v=v, ks=ks, vs=vs, p=p: \
+                    ops.decode_attention_int8(q, k, v, ks, vs, p)  # noqa: E731
+            else:
+                fn = lambda q=q, k=k, v=v, p=p: ops.decode_attention(q, k, v, p)  # noqa: E731
+            out.append((f"decode_attention served {name}{tag} C={C} pos "
+                        f"{int(p.min())}-{int(p.max())}", fn,
+                        "decode_int8_kernel" if int8 else "decode_kernel",
+                        ((2e-2, 0.0),)))
     for S in (64, 512):
         q = torch.randn((1, S, Hq, d), generator=gen, device="cuda").to(dt)
         k = torch.randn((1, S, Hkv, d), generator=gen, device="cuda").to(dt)
@@ -171,8 +194,11 @@ def main() -> int:
                     errs, ok = agree(fn(), ref, tols)
                     if not ok:
                         raise AssertionError(f"{name} {case}: differs by {errs}")
-                    times.setdefault((case, name), []).append(
-                        device_us(fn, needle))
+                    try:
+                        t = device_us(fn, needle)
+                    except RuntimeError as e:
+                        raise RuntimeError(f"{name} {case}: {e}") from None
+                    times.setdefault((case, name), []).append(t)
     finally:
         _build.load_library = load
     print(f"card: {card}")

@@ -48,6 +48,7 @@ SIGNATURES: Dict[str, List] = {
     "repro_wkv": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I, _P],
     "repro_rope": [_P] * 7 + [_I] * 6 + [_L] * 15 + [_F, _I, _P],
     "repro_rmsnorm_geometry": [_I, _I, _I, _I, ctypes.POINTER(_I)],
+    "repro_decode_attention_occupancy": [_I] * 6 + [ctypes.POINTER(_I)],
     "repro_empty": [_P],
 }
 

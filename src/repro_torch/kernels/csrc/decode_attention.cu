@@ -18,8 +18,8 @@
 // block per (b, kv head) walking the ring in serial tiles (the first
 // version) kept 16 SMs busy, one tile in flight each.
 //
-// Design: split the ring across a thread-block cluster and merge in
-// distributed shared memory, in one launch.
+// Design: split each row's valid span across a thread-block cluster and
+// merge in distributed shared memory, in one launch.
 // - Grid (n_split, Hkv * n_gt, B), with a cluster of the n_split blocks of
 //   one (b, kv head, group tile); n_split = min(8, C), 8 being the largest
 //   portable cluster. A group of G query heads is cut into n_gt tiles of at
@@ -27,18 +27,28 @@
 //   as they come (group_tiles): any G runs, MQA included. n_gt is 1 up to
 //   G 32, so every served config launches as before; a group of n_gt tiles
 //   reads the ring n_gt times, once for each tile.
-//   Block `split` owns the contiguous slots [split*per, min(C, split*per +
-//   per)), per = ceil(C / n_split): 64 slots (16 KB of bf16 K and V) at
-//   C = 512, so 128 blocks instead of 16. The grid depends on C only; pos
-//   stays on the device.
-// - Each block brings its range in with 16-byte cp.async copies into
+// - The blocks split the row's valid span, not the ring (split_span). From
+//   p = pos[b] each block derives the visible positions [start, p], start =
+//   max(0, p - C + 1, p - window + 1, floor(p / chunk) * chunk) (window and
+//   chunk where set): n = p - start + 1 positions, in the slots (start + o)
+//   mod C. Block `split` takes the offsets [split * per, min(n, split * per
+//   + per)), per = ceil(n / n_split), counted from slot start mod C, or
+//   from slot 0 when the span is the whole ring (n = C): a full ring keeps
+//   the ranges [split * ceil(C / n_split), ...) of a split by capacity. A
+//   piece that passes slot C - 1 goes on at slot 0. At ~2,000 valid
+//   positions of a 16,384-slot ring each of the 8 blocks walks ~250 slots,
+//   where a split by capacity (2,048 slots a block) left one block to walk
+//   them all while seven skipped. Pieces are not rounded to the 64-slot
+//   tile: a piece of per slots takes as many tiles as one of per rounded
+//   up. The grid depends on shapes only; pos stays on the device.
+// - Each block brings its piece in with 16-byte cp.async copies into
 //   padded shared-memory rows (a 64-slot tile in one round trip, tiles
-//   double-buffered when the range is longer). Slots past the range are
+//   double-buffered when the piece is longer). Slots past the piece are
 //   zero-filled, so no stale bits reach the P.V sums.
-// - Before a tile's loads the block evaluates the ring/window/chunk mask of
-//   its slots (__syncthreads_or): a tile with no visible slot is neither
-//   loaded nor computed. A block with none writes the neutral partial
-//   m = -1e30, l = 0, acc = 0. At the start of a request most blocks skip.
+// - Every slot of a piece is visible; each score still passes the
+//   ring/window/chunk mask of the TPU kernel (slot_visible), bit for bit. A
+//   block with an empty piece (n < n_split, or pos < 0) writes the neutral
+//   partial m = -1e30, l = 0, acc = 0.
 // - One warp per query head of the group tile: lane j scores
 //   slots j and j + 32 of the tile (q, which travels with the first tile's
 //   copies, and K as 16-byte vectors from shared memory, q by broadcast;
@@ -48,26 +58,29 @@
 //   d 96; j at d 32) and takes each slot's weight by shuffle. At d 16 the
 //   two half-warps own the 16 columns twice over (lane j column j % 16) and
 //   take alternate slots of the tile, and one shuffle adds the halves' acc
-//   before the merge (m and l are warp-wide already). Loops stop at the range's
+//   before the merge (m and l are warp-wide already). Loops stop at the piece's
 //   last slot. m, l and acc stay fp32, with the masks of the TPU kernel bit
 //   for bit (non-negative ring modulo, floor division for chunks).
 // - Merge: each warp writes its (m, l, acc) straight into the shared memory
 //   of the cluster's first block (distributed shared memory). Every thread
-//   arrives on the cluster barrier at entry (relaxed, so the loads are not
-//   held up) and waits on it just before that write: no block touches
-//   another's shared memory before the whole cluster has started. One
-//   cluster.sync() then publishes the partials, the other blocks exit, and
-//   the first block forms sum_i e^(m_i - M) acc_i / sum_i e^(m_i - M) l_i
-//   with M = max_i m_i and the l == 0 guard of the TPU kernel's finalize,
-//   from its own shared memory. No second (combine) launch.
+//   arrives on the cluster barrier once its block has consumed its last
+//   tile and waits on it just before that write: no block writes another's
+//   shared memory before every block of the cluster has finished reading
+//   its own, so the partials' buffer overlays the K/V stages and q (a
+//   block's shared memory is the larger of the two, not their sum:
+//   smem_bytes). One cluster.sync() then publishes the partials, the other
+//   blocks exit, and the first block forms sum_i e^(m_i - M) acc_i / sum_i
+//   e^(m_i - M) l_i with M = max_i m_i and the l == 0 guard of the TPU
+//   kernel's finalize, from its own shared memory. No second (combine)
+//   launch.
 // fp32 inputs take the same design with 4-byte elements; the tensor cores
 // play no part (G = 3 query rows are too few for an mma tile).
 //
 // The int8 variant (decode_int8_kernel, repro_decode_attention_int8) serves
 // the int8 KV cache of cfg.kv_quant. It has no Pallas counterpart: it
 // replaces the XLA chain dequantize_kv + masked softmax attention of
-// src/repro/models/attention.py:decode_attend. Same grid, cluster, masks,
-// tile skipping and merge; what differs is the tile:
+// src/repro/models/attention.py:decode_attend. Same grid, cluster, span
+// split, masks and merge; what differs is the tile:
 // - a head row of codes is D bytes, D / 16 16-byte cp.async copies (half
 //   the bf16 bytes), into padded shared-memory rows of 48, 48, 80, 112 and
 //   144 bytes at d 16, 32, 64, 96 and 128 (int8_row: an odd number of
@@ -82,6 +95,8 @@
 //   dequantize_kv does it: float(code) * float(scale), rounded to q's type
 //   (bf16 round to nearest even) before it enters q.k or P.V in fp32.
 #include <cooperative_groups.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -128,11 +143,11 @@ struct Cols {
   }
 };
 
-// the cluster barrier in two halves: a relaxed arrive (no ordering of
-// earlier writes) and the wait that completes it; every thread of every
-// block of the cluster executes both
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+// the cluster barrier in two halves: an arrive that releases this thread's
+// earlier shared-memory accesses, and the wait that completes it; every
+// thread of every block of the cluster executes both
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
@@ -149,6 +164,37 @@ __device__ __forceinline__ bool slot_visible(int j, int p_now, int C, int window
   return ok;
 }
 
+// A block's piece of its row's valid span: `len` slots from slot `first`,
+// (first + o) mod C for o < len. The span is the visible positions [start,
+// p_now] (n of them, none for p_now < 0), in the slots (start + o) mod C;
+// block `split` of n_split takes offsets [split * per, split * per + per)
+// of it, per = ceil(n / n_split), counted from slot start mod C, or from
+// slot 0 when the span is the whole ring (the ranges of a split by
+// capacity). kernels/decode_attention.py:split_geometry mirrors it for
+// labels and tests only, and must be changed with it.
+struct Piece {
+  int first, len;
+  __device__ __forceinline__ int slot(int o, int C) const {
+    const int j = first + o;   // first < C and o < C
+    return j < C ? j : j - C;
+  }
+};
+
+__device__ __forceinline__ Piece split_span(int p_now, int C, int window,
+                                            int chunk, int split, int n_split) {
+  int start = max(0, p_now - C + 1);
+  if (window > 0) start = max(start, p_now - window + 1);
+  if (chunk > 0) start = max(start, floor_div(p_now, chunk) * chunk);
+  const int n = max(0, p_now - start + 1);
+  const int per = (n + n_split - 1) / n_split;
+  const int lo = min(n, split * per);
+  Piece pc;
+  pc.first = (n == C ? 0 : start % C) + lo;
+  pc.first -= pc.first < C ? 0 : C;
+  pc.len = min(n, lo + per) - lo;
+  return pc;
+}
+
 // The group's head a tile's warp i computes: g0 + i, or the group's last
 // head for a warp past the end of the last (shorter) tile, which computes
 // on a real head and stores nothing.
@@ -163,24 +209,13 @@ __device__ __forceinline__ T* out_row(T* out, int b, int h, int Hkv, int G,
   return g < G ? out + ((int64_t)b * Hkv * G + (int64_t)h * G + g) * D : nullptr;
 }
 
-// block-uniform: does the tile of slots [j0, min(hi, j0 + kTile)) hold a
-// visible slot? (one barrier)
-__device__ __forceinline__ bool tile_visible(int j0, int hi, int p_now, int C,
-                                             int window, int chunk) {
-  int any = 0;
-  for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-    const int j = j0 + i;
-    if (j < hi && slot_visible(j, p_now, C, window, chunk)) any = 1;
-  }
-  return __syncthreads_or(any) != 0;
-}
-
-// Every block of the cluster has started (each arrived on the cluster
-// barrier at entry): push this warp's partial (acc over the lane's columns
-// Cols<D>::col, m, l) into rank 0's shared memory `part` ([n_split][G][D +
-// 2], G the tile's heads); cluster.sync() releases it there, and no block
-// reads another's after. Rank 0 then merges the partials of head g into
-// orow (null for a warp past the last tile's heads: it stores nothing).
+// Every block of the cluster has consumed its tiles (each arrived on the
+// cluster barrier after its last one): push this warp's partial (acc over
+// the lane's columns Cols<D>::col, m, l) into rank 0's shared memory `part`
+// ([n_split][G][D + 2], G the tile's heads, over rank 0's K/V stages);
+// cluster.sync() releases it there, and no block reads another's after.
+// Rank 0 then merges the partials of head g into orow (null for a warp past
+// the last tile's heads: it stores nothing).
 template <typename T, int D>
 __device__ __forceinline__ void merge_partials(float* part, int split, int G,
                                                int g, int lane, float m, float l,
@@ -236,15 +271,20 @@ __device__ __forceinline__ void merge_partials(float* part, int split, int G,
 // heads, except fp32 at d 96 and 128, 16. Under a 1,024-thread bound ptxas
 // kept those two instances to 32 registers and spilled; under 640 they
 // took 47-48, and the d 96 one spilled 8 bytes once the group tiles' indices
-// were added; under 512 they take 45 (d 96) and 40 (d 128) with no spill.
+// were added; under 512 alone they took 40 and the d 128 one spilled 20
+// bytes once the span split was added. min_blocks asks for two such blocks
+// an SM, which lets them have 64 registers: no spill. 0, for every other
+// instance, leaves ptxas its own choice.
 template <typename T, int D>
 constexpr int max_threads() { return sizeof(T) == 4 && D > 64 ? 512 : 1024; }
+template <typename T, int D>
+constexpr int min_blocks() { return max_threads<T, D>() == 512 ? 2 : 0; }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(max_threads<T, D>())
+__global__ void __launch_bounds__(max_threads<T, D>(), min_blocks<T, D>())
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ pos,
-              T* __restrict__ out, int Hkv, int C, int G, int per,
+              T* __restrict__ out, int Hkv, int C, int G,
               int64_t qb, int64_t qh, int64_t kb, int64_t kh, int64_t kc,
               int64_t vb, int64_t vh, int64_t vc, int window, int chunk,
               float scale) {
@@ -258,37 +298,30 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int gt = blockDim.x / 32;           // heads of a group tile
   T* Qs = KV + 4 * kTile * kRow;            // [gt][D]
   // [n_split][gt][D + 2]: every block's partials (acc[D], m, l), pushed
-  // into the cluster's first block; the others leave theirs unused
-  float* part = reinterpret_cast<float*>(Qs + gt * D);
+  // into the cluster's first block over its stages and q once they are
+  // consumed; the others leave theirs unused
+  float* part = reinterpret_cast<float*>(smem_raw);
 
-  cluster_arrive_relaxed();   // this block has started (see the merge)
   const int split = blockIdx.x, b = blockIdx.z;
   const int n_gt = gridDim.y / Hkv, h = blockIdx.y / n_gt;
   const int g0 = (blockIdx.y % n_gt) * gt;  // the tile's first head
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int g = tid / 32, lane = tid % 32;  // warp g: head g0 + g of the group
   const int p_now = pos[b];
-  const int lo = split * per, hi = min(C, lo + per);
-  const int n_tiles = hi > lo ? (hi - lo + kTile - 1) / kTile : 0;
+  const Piece pc = split_span(p_now, C, window, chunk, split, gridDim.x);
+  const int n_tiles = (pc.len + kTile - 1) / kTile;
 
   const T* kbase = k + b * kb + h * kh;
   const T* vbase = v + b * vb + h * vh;
 
-  auto next_tile = [&](int t) -> int {
-    while (t < n_tiles &&
-           !tile_visible(lo + t * kTile, hi, p_now, C, window, chunk))
-      ++t;
-    return t;
-  };
   auto issue = [&](int t, int stage) {
     T* ks = KV + stage * 2 * kTile * kRow;
     T* vs = ks + kTile * kRow;
-    const int j0 = lo + t * kTile;
+    const int o0 = t * kTile;
     for (int i = tid; i < kTile * kChunks; i += nthreads) {
       const int jj = i / kChunks, c = i % kChunks;
-      const int j = j0 + jj;
-      const bool ok = j < hi;
-      const int js = ok ? j : lo;
+      const bool ok = o0 + jj < pc.len;
+      const int js = ok ? pc.slot(o0 + jj, C) : pc.first;
       cp_async16(ks + jj * kRow + c * kVec, kbase + js * kc + c * kVec, ok);
       cp_async16(vs + jj * kRow + c * kVec, vbase + js * vc + c * kVec, ok);
     }
@@ -297,18 +330,16 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m = REPRO_NEG_INF, l = 0.f, acc[Cl::kN];
 #pragma unroll
   for (int i = 0; i < Cl::kN; ++i) acc[i] = 0.f;
-  int t = next_tile(0);
-  if (t < n_tiles) {   // q of the tile travels with the first tile
-    issue(t, 0);
+  if (n_tiles > 0) {   // q of the tile travels with the first tile
+    issue(0, 0);
     for (int i = tid; i < gt * kChunks; i += nthreads)
       cp_async16(Qs + i * kVec, q + b * qb + (h * G + head_of(g0, i / kChunks, G)) * qh
                                     + (i % kChunks) * kVec, true);
   }
   cp_async_commit();
   int stage = 0;
-  while (t < n_tiles) {
-    const int nt = next_tile(t + 1);
-    if (nt < n_tiles) issue(nt, stage ^ 1);
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) issue(t + 1, stage ^ 1);
     cp_async_commit();
     cp_async_wait<1>();                // tile t has landed
     __syncthreads();                   // for every thread; Qs too
@@ -316,15 +347,15 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* ks = KV + stage * 2 * kTile * kRow;
     const T* vs = ks + kTile * kRow;
     const T* qg = Qs + g * D;
-    const int j0 = lo + t * kTile;
-    const int n_mine = min(kTile, hi - j0);              // slots in range
+    const int o0 = t * kTile;
+    const int n_mine = min(kTile, pc.len - o0);          // slots in the piece
     float s[kSL];
     float m_tile = -INFINITY;
 #pragma unroll
     for (int i = 0; i < kSL; ++i) {
-      const int jj = lane + 32 * i, j = j0 + jj;
-      float val = -INFINITY;   // past the range: excluded entirely
-      if (lane + 32 * i < n_mine) {
+      const int jj = lane + 32 * i;
+      float val = -INFINITY;   // past the piece: excluded entirely
+      if (jj < n_mine) {
         const T* kr = ks + jj * kRow;
         float dot0 = 0.f, dot1 = 0.f;   // two chains of FMAs
 #pragma unroll
@@ -338,8 +369,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
             dot1 = fmaf(qf[e + 1], kf[e + 1], dot1);
           }
         }
-        val = slot_visible(j, p_now, C, window, chunk) ? (dot0 + dot1) * scale
-                                                       : REPRO_NEG_INF;
+        val = slot_visible(pc.slot(o0 + jj, C), p_now, C, window, chunk)
+                  ? (dot0 + dot1) * scale : REPRO_NEG_INF;
       }
       s[i] = val;
       m_tile = fmaxf(m_tile, val);
@@ -377,10 +408,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();   // the stage is consumed before it is refilled
-    t = nt;
     stage ^= 1;
   }
 
+  cluster_arrive();   // this block's stages and q are consumed (see the merge)
   Cl::join_halves(acc);
   merge_partials<T, D>(part, split, gt, g, lane, m, l, acc,
                        out_row(out, b, h, Hkv, G, g0 + g, D));
@@ -414,7 +445,7 @@ __global__ void __launch_bounds__(kInt8Threads)
 decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                    const int8_t* __restrict__ v, const T* __restrict__ ks,
                    const T* __restrict__ vs, const int* __restrict__ pos,
-                   T* __restrict__ out, int Hkv, int C, int G, int per,
+                   T* __restrict__ out, int Hkv, int C, int G,
                    int64_t qb, int64_t qh, int64_t kb, int64_t kh, int64_t kc,
                    int64_t vb, int64_t vh, int64_t vc, int64_t ksb, int64_t ksh,
                    int64_t ksc, int64_t vsb, int64_t vsh, int64_t vsc,
@@ -429,53 +460,45 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   float* SC = reinterpret_cast<float*>(KV + 4 * kTile * kRow);  // [2][K, V][kTile]
   const int gt = blockDim.x / 32;                               // heads of a group tile
   T* Qs = reinterpret_cast<T*>(SC + 4 * kTile);                 // [gt][D]
-  float* part = reinterpret_cast<float*>(Qs + gt * D);  // [n_split][gt][D + 2]
+  // [n_split][gt][D + 2], over the stages, scales and q (see decode_kernel)
+  float* part = reinterpret_cast<float*>(smem_raw);
 
-  cluster_arrive_relaxed();   // this block has started (see the merge)
   const int split = blockIdx.x, b = blockIdx.z;
   const int n_gt = gridDim.y / Hkv, h = blockIdx.y / n_gt;
   const int g0 = (blockIdx.y % n_gt) * gt;  // the tile's first head
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int g = tid / 32, lane = tid % 32;
   const int p_now = pos[b];
-  const int lo = split * per, hi = min(C, lo + per);
-  const int n_tiles = hi > lo ? (hi - lo + kTile - 1) / kTile : 0;
+  const Piece pc = split_span(p_now, C, window, chunk, split, gridDim.x);
+  const int n_tiles = (pc.len + kTile - 1) / kTile;
 
-  const int8_t* kbase = k + b * kb + h * kh;
-  const int8_t* vbase = v + b * vb + h * vh;
-  const T* ksbase = ks + b * ksb + h * ksh;
-  const T* vsbase = vs + b * vsb + h * vsh;
-
-  auto next_tile = [&](int t) -> int {
-    while (t < n_tiles &&
-           !tile_visible(lo + t * kTile, hi, p_now, C, window, chunk))
-      ++t;
-    return t;
-  };
+  // the row's base pointers are formed where they are used: held in
+  // registers across the tile loop they took the fp32 d 96 instance past
+  // its 64 registers (a 4-byte spill)
   auto issue = [&](int t, int stage) {
     int8_t* kst = KV + stage * 2 * kTile * kRow;
     int8_t* vst = kst + kTile * kRow;
-    const int j0 = lo + t * kTile;
+    const int o0 = t * kTile;
     for (int i = tid; i < kTile * kChunks; i += nthreads) {
       const int jj = i / kChunks, c = i % kChunks;
-      const int j = j0 + jj;
-      const bool ok = j < hi;
-      const int js = ok ? j : lo;
-      cp_async16(kst + jj * kRow + c * 16, kbase + js * kc + c * 16, ok);
-      cp_async16(vst + jj * kRow + c * 16, vbase + js * vc + c * 16, ok);
+      const bool ok = o0 + jj < pc.len;
+      const int js = ok ? pc.slot(o0 + jj, C) : pc.first;
+      cp_async16(kst + jj * kRow + c * 16, k + b * kb + h * kh + js * kc + c * 16, ok);
+      cp_async16(vst + jj * kRow + c * 16, v + b * vb + h * vh + js * vc + c * 16, ok);
     }
   };
   // this thread's scales of a tile (slots tid and tid + nthreads; two cover
-  // the tile when a tile holds one head), 0 past the range
+  // the tile when a tile holds one head), 0 past the piece
   float ksr[2], vsr[2];
   auto load_scales = [&](int t) {
-    const int j0 = lo + t * kTile;
+    const int o0 = t * kTile;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int i = tid + r * nthreads, j = j0 + i;
-      const bool ok = i < kTile && j < hi;
-      ksr[r] = ok ? to_f32(ksbase[j * ksc]) : 0.f;
-      vsr[r] = ok ? to_f32(vsbase[j * vsc]) : 0.f;
+      const int i = tid + r * nthreads;
+      const bool ok = i < kTile && o0 + i < pc.len;
+      const int j = ok ? pc.slot(o0 + i, C) : 0;
+      ksr[r] = ok ? to_f32(ks[b * ksb + h * ksh + j * ksc]) : 0.f;
+      vsr[r] = ok ? to_f32(vs[b * vsb + h * vsh + j * vsc]) : 0.f;
     }
   };
   auto store_scales = [&](int stage) {
@@ -493,23 +516,22 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   float m = REPRO_NEG_INF, l = 0.f, acc[Cl::kN];
 #pragma unroll
   for (int i = 0; i < Cl::kN; ++i) acc[i] = 0.f;
-  int t = next_tile(0);
-  if (t < n_tiles) {   // q of the tile travels with the first tile
-    issue(t, 0);
+  if (n_tiles > 0) {   // q of the tile travels with the first tile
+    issue(0, 0);
     for (int i = tid; i < gt * (D / kVec); i += nthreads)
       cp_async16(Qs + i * kVec,
                  q + b * qb + (h * G + head_of(g0, i / (D / kVec), G)) * qh
                    + (i % (D / kVec)) * kVec, true);
-    load_scales(t);
+    load_scales(0);
     store_scales(0);
   }
   cp_async_commit();
   int stage = 0;
-  while (t < n_tiles) {
-    const int nt = next_tile(t + 1);
-    if (nt < n_tiles) {
-      issue(nt, stage ^ 1);
-      load_scales(nt);                 // stored after this tile's compute
+  for (int t = 0; t < n_tiles; ++t) {
+    const bool more = t + 1 < n_tiles;
+    if (more) {
+      issue(t + 1, stage ^ 1);
+      load_scales(t + 1);              // stored after this tile's compute
     }
     cp_async_commit();
     cp_async_wait<1>();                // tile t has landed
@@ -520,14 +542,14 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
     const float* kss = SC + stage * 2 * kTile;
     const float* vss = kss + kTile;
     const T* qg = Qs + g * D;
-    const int j0 = lo + t * kTile;
-    const int n_mine = min(kTile, hi - j0);              // slots in range
+    const int o0 = t * kTile;
+    const int n_mine = min(kTile, pc.len - o0);          // slots in the piece
     float s[kSL];
     float m_tile = -INFINITY;
 #pragma unroll
     for (int i = 0; i < kSL; ++i) {
-      const int jj = lane + 32 * i, j = j0 + jj;
-      float val = -INFINITY;   // past the range: excluded entirely
+      const int jj = lane + 32 * i;
+      float val = -INFINITY;   // past the piece: excluded entirely
       if (jj < n_mine) {
         const int8_t* kr = kst + jj * kRow;
         const float sk = kss[jj];
@@ -551,8 +573,8 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
             }
           }
         }
-        val = slot_visible(j, p_now, C, window, chunk) ? (dot0 + dot1) * scale
-                                                       : REPRO_NEG_INF;
+        val = slot_visible(pc.slot(o0 + jj, C), p_now, C, window, chunk)
+                  ? (dot0 + dot1) * scale : REPRO_NEG_INF;
       }
       s[i] = val;
       m_tile = fmaxf(m_tile, val);
@@ -593,23 +615,20 @@ decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
           acc[c] += p * dequant<T>(vr[Cl::col(c, lane)], sv);
       }
     }
-    if (nt < n_tiles) store_scales(stage ^ 1);   // its readers passed the
-    __syncthreads();   // last barrier; the stage is consumed before refilled
-    t = nt;
+    if (more) store_scales(stage ^ 1);   // its readers passed the last
+    __syncthreads();   // barrier; the stage is consumed before refilled
     stage ^= 1;
   }
+  cluster_arrive();   // stages, scales and q consumed (see the merge)
   Cl::join_halves(acc);
   merge_partials<T, D>(part, split, gt, g, lane, m, l, acc,
                        out_row(out, b, h, Hkv, G, g0 + g, D));
 }
 
-// n_split and slots per split for a ring of C slots. This decides the
-// launch; kernels/decode_attention.py:split_geometry mirrors it for labels
-// and tests only, and must be changed with it.
-void split_geometry(int C, int* n_split, int* per) {
-  *n_split = C < kMaxSplit ? C : kMaxSplit;
-  *per = (C + *n_split - 1) / *n_split;
-}
+// Blocks a cluster has for a ring of C slots: the grid depends on C only.
+// Which slots each block reads is decided on the device, from pos
+// (split_span).
+int n_splits(int C) { return C < kMaxSplit ? C : kMaxSplit; }
 
 // A group of G query heads in n_gt tiles of at most max_heads heads, as
 // even as they come: tile i takes heads [i * gt, min(G, (i + 1) * gt)), and
@@ -621,34 +640,75 @@ void group_tiles(int G, int max_heads, int* n_gt, int* gt) {
   *gt = (G + *n_gt - 1) / *n_gt;
 }
 
-// Launch `go(cfg, per)` on the grid (n_split, Hkv * n_gt, B) with clusters
-// of the n_split blocks of one (b, kv head, group tile), gt warps a block,
-// and `smem` bytes of dynamic shared memory for `kern`.
-template <typename Go>
-int launch_clusters(const void* kern, size_t smem, int B, int Hkv, int C,
-                    int n_gt, int gt, cudaStream_t s, Go&& go) {
+// What a launch of one instance needs beside its arguments: the kernel, its
+// group tiles (gt warps a block) and its dynamic shared memory, the larger
+// of the tile stages (with q, and the int8 scales) and the merge buffer
+// ([kMaxSplit][gt][D + 2] floats) that overlays them.
+struct Geometry {
+  const void* kern;
+  int n_gt, gt;
+  size_t smem;
+};
+
+size_t merge_bytes(int gt, int D) { return sizeof(float) * kMaxSplit * gt * (D + 2); }
+
+template <typename T, int D>
+Geometry plain_geometry(int G) {
+  Geometry g;
+  group_tiles(G, max_threads<T, D>() / 32, &g.n_gt, &g.gt);
+  constexpr int kRow = D + 16 / sizeof(T);
+  g.smem = std::max(sizeof(T) * (4 * kTile * kRow + g.gt * D), merge_bytes(g.gt, D));
+  g.kern = (const void*)decode_kernel<T, D>;
+  return g;
+}
+
+template <typename T, int D>
+Geometry int8_geometry(int G) {
+  Geometry g;
+  group_tiles(G, kInt8Threads / 32, &g.n_gt, &g.gt);
+  g.smem = std::max(4 * kTile * int8_row<D>() + sizeof(float) * 4 * kTile
+                        + sizeof(T) * g.gt * D,
+                    merge_bytes(g.gt, D));
+  g.kern = (const void*)decode_int8_kernel<T, D>;
+  return g;
+}
+
+// The launch of geo's kernel on the grid (n_split, Hkv * n_gt, B) with
+// clusters of the n_split blocks of one (b, kv head, group tile), after
+// the opt-in to its shared memory; attr holds the cluster's size.
+cudaError_t cluster_config(const Geometry& geo, int B, int Hkv, int C,
+                           cudaStream_t s, cudaLaunchAttribute* attr,
+                           cudaLaunchConfig_t* cfg) {
   // the merge buffer grows with gt * D: every instance's largest tile fits
   // (fp32 d 128 at 16 heads, bf16 and int8 at 32); a larger one is refused
   // here
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (geo.smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  int n_split, per;
-  split_geometry(C, &n_split, &per);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_split, Hkv * n_gt, B);
-  cfg.blockDim = dim3(32 * gt);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n_split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = go(cfg, per);
+      geo.kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)geo.smem);
+  if (e != cudaSuccess) return e;
+  const int n_split = n_splits(C);
+  *cfg = {};
+  cfg->gridDim = dim3(n_split, Hkv * geo.n_gt, B);
+  cfg->blockDim = dim3(32 * geo.gt);
+  cfg->dynamicSmemBytes = geo.smem;
+  cfg->stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = n_split;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// Launch `go(cfg)` on geo's cluster_config.
+template <typename Go>
+int launch_clusters(const Geometry& geo, int B, int Hkv, int C, cudaStream_t s,
+                    Go&& go) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t e = cluster_config(geo, B, Hkv, C, s, &attr, &cfg);
+  if (e == cudaSuccess) e = go(cfg);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -657,20 +717,14 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* pos, void* out,
            int B, int Hkv, int C, int G, const int64_t* st, int window,
            int chunk, float scale, cudaStream_t s) {
-  int n_gt, gt;
-  group_tiles(G, max_threads<T, D>() / 32, &n_gt, &gt);
-  constexpr int kRow = D + 16 / sizeof(T);
-  const size_t smem =
-      sizeof(T) * (4 * kTile * kRow + gt * D) + sizeof(float) * kMaxSplit * gt * (D + 2);
+  const Geometry geo = plain_geometry<T, D>(G);
   auto kern = decode_kernel<T, D>;
-  return launch_clusters(
-      (const void*)kern, smem, B, Hkv, C, n_gt, gt, s,
-      [&](const cudaLaunchConfig_t& cfg, int per) {
-        return cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k,
-                                  (const T*)v, pos, (T*)out, Hkv, C, G, per,
-                                  st[0], st[1], st[2], st[3], st[4], st[5],
-                                  st[6], st[7], window, chunk, scale);
-      });
+  return launch_clusters(geo, B, Hkv, C, s, [&](const cudaLaunchConfig_t& cfg) {
+    return cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const T*)k,
+                              (const T*)v, pos, (T*)out, Hkv, C, G, st[0], st[1],
+                              st[2], st[3], st[4], st[5], st[6], st[7], window,
+                              chunk, scale);
+  });
 }
 
 template <typename T, int D>
@@ -678,22 +732,16 @@ int launch_int8(const void* q, const void* k, const void* v, const void* ks,
                 const void* vs, const int* pos, void* out, int B, int Hkv, int C,
                 int G, const int64_t* st, int window, int chunk, float scale,
                 cudaStream_t s) {
-  int n_gt, gt;
-  group_tiles(G, kInt8Threads / 32, &n_gt, &gt);
-  constexpr int kRow = int8_row<D>();
-  const size_t smem = 4 * kTile * kRow + sizeof(float) * 4 * kTile
-                      + sizeof(T) * gt * D + sizeof(float) * kMaxSplit * gt * (D + 2);
+  const Geometry geo = int8_geometry<T, D>(G);
   auto kern = decode_int8_kernel<T, D>;
-  return launch_clusters(
-      (const void*)kern, smem, B, Hkv, C, n_gt, gt, s,
-      [&](const cudaLaunchConfig_t& cfg, int per) {
-        return cudaLaunchKernelEx(&cfg, kern, (const T*)q, (const int8_t*)k,
-                                  (const int8_t*)v, (const T*)ks, (const T*)vs,
-                                  pos, (T*)out, Hkv, C, G, per, st[0], st[1],
-                                  st[2], st[3], st[4], st[5], st[6], st[7],
-                                  st[8], st[9], st[10], st[11], st[12], st[13],
-                                  window, chunk, scale);
-      });
+  return launch_clusters(geo, B, Hkv, C, s, [&](const cudaLaunchConfig_t& cfg) {
+    return cudaLaunchKernelEx(&cfg, kern, (const T*)q,
+                              (const int8_t*)k, (const int8_t*)v, (const T*)ks,
+                              (const T*)vs, pos, (T*)out, Hkv, C, G, st[0], st[1],
+                              st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+                              st[9], st[10], st[11], st[12], st[13], window,
+                              chunk, scale);
+  });
 }
 
 }  // namespace
@@ -749,5 +797,33 @@ extern "C" int repro_decode_attention_int8(
     return launch_int8<__nv_bfloat16, kD>(q, k, v, k_scale, v_scale,
                                           (const int*)pos, out, B, Hkv, C, G, st,
                                           window, chunk, scale, s);
+  });
+}
+
+// For labels: what a launch of repro_decode_attention (int8 0) or of
+// repro_decode_attention_int8 (int8 1) takes at Hkv kv heads of G query
+// heads each, head dim d and a ring of C slots, as five ints: threads a
+// block, dynamic shared memory a block (bytes), blocks resident on one SM,
+// clusters resident on the card at once, blocks a cluster (n_split).
+extern "C" int repro_decode_attention_occupancy(int Hkv, int C, int G, int d,
+                                                int dtype, int int8, int* res) {
+  if (Hkv < 1 || G < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  return with_head_dim(d, [&](auto D) {
+    constexpr int kD = decltype(D)::value;
+    const Geometry geo =
+        dtype == kF32 ? (int8 ? int8_geometry<float, kD>(G) : plain_geometry<float, kD>(G))
+                      : (int8 ? int8_geometry<__nv_bfloat16, kD>(G)
+                              : plain_geometry<__nv_bfloat16, kD>(G));
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg;
+    cudaError_t e = cluster_config(geo, 1, Hkv, C, 0, &attr, &cfg);
+    int blocks = 0, clusters = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, geo.kern,
+                                                        32 * geo.gt, geo.smem);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&clusters, geo.kern, &cfg);
+    const int v[5] = {32 * geo.gt, (int)geo.smem, blocks, clusters, n_splits(C)};
+    for (int i = 0; i < 5; ++i) res[i] = v[i];
+    return (int)e;
   });
 }

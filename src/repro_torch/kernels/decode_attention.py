@@ -4,16 +4,19 @@
 Replaces the TPU kernel ``repro/kernels/decode_attention.py``
 (``decode_attention`` / ``_decode_kernel``). Bytes bound it on the H100
 (each K/V slot is read once and shared by the G query heads of its group),
-but at the serving shape the call reads 2 MB, so latency is what limits it:
-how many loads are in flight and on how many SMs. The kernel splits the
-ring into ``n_split`` ranges (``split_geometry``), one block each in a
-thread-block cluster per (b, kv head, group tile); each block brings its
-range in with 16-byte ``cp.async`` copies, skips ranges the masks hide, and
-computes a partial (m, l, acc) for each query head of its tile, one warp a
-head; the cluster's first block merges the partials from distributed shared
-memory, all in one launch. A group of any size runs: it is cut into tiles
-of at most ``max_heads`` heads (``group_tiles``), and a group of T tiles
-reads the ring T times. See the source for the design.
+so what limits it is how many loads are in flight and on how many SMs. The
+kernel gives each (b, kv head, group tile) a thread-block cluster of
+``n_split`` blocks and splits the row's valid span among them
+(``split_geometry``): each block derives, on the device from ``pos``, the
+row's visible positions [start, pos] (ring, window and chunk) and takes an
+nth of them, so a short row of a long ring keeps every block busy, and a
+full ring keeps the ranges of a split by capacity. Each block brings its
+piece in with 16-byte ``cp.async`` copies and computes a partial (m, l,
+acc) for each query head of its tile, one warp a head; the cluster's first
+block merges the partials from distributed shared memory, all in one
+launch, whose grid depends on shapes only. A group of any size runs: it is
+cut into tiles of at most ``max_heads`` heads (``group_tiles``), and a
+group of T tiles reads the ring T times. See the source for the design.
 
 ``decode_attention_int8`` is the same kernel over the int8 ring of
 ``cfg.kv_quant``: it reads the codes (half the bytes of bf16) and their
@@ -23,7 +26,8 @@ attention of ``repro/models/attention.py::decode_attend``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -34,16 +38,52 @@ HEAD_DIMS = _build.ATTENTION_HEAD_DIMS
 MAX_SPLIT = 8      # the kernel's cluster size: the largest portable one
 
 
-def split_geometry(C: int) -> Tuple[int, int]:
-    """The kernel's launch geometry for a ring of C slots: (n_split, slots
-    per split). Block i of the cluster owns slots [i*per, min(C, i*per +
-    per)); the last range may be short or, for small C, empty. The C entry
-    point decides the launch (``split_geometry`` in the source); this
-    mirrors it for labels and tests only, and must be changed with it."""
+def split_geometry(C: int, pos: int, window: Optional[int] = None,
+                   chunk: Optional[int] = None) -> List[Tuple[int, int]]:
+    """Each block's piece of a row at position ``pos`` of a ring of C
+    slots, as the kernel cuts it (``split_span`` in the source): a list of
+    ``n_split = min(8, C)`` pairs (first slot, slots), block i reading the
+    slots (first + o) mod C for o < slots. The row's visible positions are
+    [start, pos], start = max(0, pos - C + 1, pos - window + 1,
+    floor(pos / chunk) * chunk), n = pos - start + 1 of them (none for pos <
+    0) in the slots (start + o) mod C; block i takes the offsets [i * per,
+    min(n, i * per + per)), per = ceil(n / n_split), counted from slot start
+    mod C, or from slot 0 when the span is the whole ring (n = C), which
+    gives a full ring the ranges of a split by capacity. The kernel decides
+    on the device; this mirrors it for labels and tests only, and must be
+    changed with it."""
     if C < 1:
         raise ValueError(f"decode_attention: ring of {C} slots")
     n_split = min(MAX_SPLIT, C)
-    return n_split, -(-C // n_split)
+    start = max(0, pos - C + 1)
+    if window:
+        start = max(start, pos - window + 1)
+    if chunk:
+        start = max(start, pos // chunk * chunk)
+    n = max(0, pos - start + 1)
+    per = -(-n // n_split)
+    a = 0 if n == C else start % C
+    out = []
+    for i in range(n_split):
+        lo = min(n, i * per)
+        out.append(((a + lo) % C, min(n, lo + per) - lo))
+    return out
+
+
+def occupancy(Hkv: int, C: int, G: int, d: int, dtype: torch.dtype,
+              int8: bool = False) -> dict:
+    """The card's residency for a launch of the kernel (or of its int8
+    variant) at Hkv kv heads of G query heads each, head dim d and a ring
+    of C slots: threads and dynamic shared memory a block, blocks resident
+    on one SM and clusters resident on the card at once, and the blocks of
+    a cluster. Asks the CUDA runtime; on the card only."""
+    res = (ctypes.c_int * 5)()
+    lib = _build.load_library()
+    _build.check(lib.repro_decode_attention_occupancy(
+        Hkv, C, G, d, _build.DTYPE_CODES[dtype], int(int8), res),
+        "decode_attention occupancy")
+    return dict(zip(("threads", "smem_bytes", "blocks_per_sm",
+                     "clusters_resident", "n_split"), res))
 
 
 def max_heads(dtype: torch.dtype, d: int, int8: bool = False) -> int:

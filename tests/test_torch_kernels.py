@@ -250,61 +250,66 @@ def test_wrappers_refuse_other_devices():
         tops.rmsnorm(torch.ones(2, 64), torch.empty((64,), device="meta"))
 
 
-def _split_merge(q, k, v, pos, *, window=None, chunk=None):
-    """The decode kernel's rule in plain torch. Split i of the ring holds
-    64-slot tiles; one warp per head keeps a partial (m, l, acc) over every
-    tile of the split that has a visible slot, tiles without one being
-    skipped. Masked slots score -1e30, so a partial of masked slots only has
-    m = -1e30 (and weight 0 below); one with no slot is neutral (m = -1e30,
-    l = 0, acc = 0). The partials merge by e^(m_i - M), M = max m_i, with
-    the l == 0 guard."""
-    B, Hq, d = q.shape
-    _, Hkv, C, _ = k.shape
-    G = Hq // Hkv
-    tile = 64
-    kk = k.repeat_interleave(G, dim=1)
-    vv = v.repeat_interleave(G, dim=1)
-    s = torch.einsum("bhd,bhcd->bhc", q, kk) * (d ** -0.5)
-    j = torch.arange(C)[None, :]
-    p = pos[:, None].long()
-    pslot = p - torch.remainder(p - j, C)
+def _visible(C, p, window=None, chunk=None):
+    """The slots the plain version's mask shows at position p of a ring of
+    C slots."""
+    j = np.arange(C)
+    pslot = p - np.mod(p - j, C)
     ok = pslot >= 0
     if window is not None:
         ok &= (p - pslot) < window
     if chunk is not None:
-        ok &= (torch.div(pslot, chunk, rounding_mode="floor")
-               == torch.div(p, chunk, rounding_mode="floor"))
-    s = torch.where(ok[:, None, :], s, torch.full_like(s, NEG_INF))
-    n_split, per = split_geometry(C)
-    ms, ls, accs = [], [], []
-    for i in range(n_split):
-        lo, hi = i * per, min(C, i * per + per)
-        off = torch.arange(C) - lo
-        in_split = (off >= 0) & (torch.arange(C) < hi)
-        tile_of = torch.div(off, tile, rounding_mode="floor")
-        tile_seen = torch.zeros((B, C), dtype=torch.bool)
-        for t in range(max(0, -(-(hi - lo) // tile))):
-            in_tile = in_split & (tile_of == t)
-            tile_seen |= in_tile[None] & (ok & in_tile[None]).any(-1, keepdim=True)
-        sm = torch.where(tile_seen[:, None], s, torch.full_like(s, -torch.inf))
-        m = sm.amax(-1).clamp(min=NEG_INF)                                  # (B, Hq)
-        pr = torch.exp(sm - m[..., None])                                   # 0 off split
-        ms.append(m)
-        ls.append(pr.sum(-1))
-        accs.append(torch.einsum("bhc,bhcd->bhd", pr, vv))
-    m_all = torch.stack(ms)
-    w = torch.exp(m_all - m_all.amax(0))
-    den = (w * torch.stack(ls)).sum(0)
-    num = (w[..., None] * torch.stack(accs)).sum(0)
-    return num / torch.where(den == 0, torch.ones_like(den), den)[..., None]
+        ok &= np.floor_divide(pslot, chunk) == np.floor_divide(p, chunk)
+    return ok
+
+
+def _piece_slots(C, first, n):
+    return [(first + o) % C for o in range(n)]
+
+
+def _split_merge(q, k, v, pos, *, window=None, chunk=None):
+    """The decode kernel's rule in plain torch. Block i of each row reads
+    its piece of the row's valid span (``split_geometry``); one warp per
+    head keeps a partial (m, l, acc) over it, each slot still passed through
+    the ring/window/chunk mask (a masked slot scores -1e30); a block with an
+    empty piece is neutral (m = -1e30, l = 0, acc = 0). The partials merge
+    by e^(m_i - M), M = max m_i, with the l == 0 guard."""
+    B, Hq, d = q.shape
+    _, Hkv, C, _ = k.shape
+    G = Hq // Hkv
+    kk = k.repeat_interleave(G, dim=1)
+    vv = v.repeat_interleave(G, dim=1)
+    s = torch.einsum("bhd,bhcd->bhc", q, kk) * (d ** -0.5)
+    out = torch.empty_like(q)
+    for b in range(B):
+        p = int(pos[b])
+        ok = torch.from_numpy(_visible(C, p, window, chunk))
+        sb = torch.where(ok[None], s[b], torch.full_like(s[b], NEG_INF))
+        ms, ls, accs = [], [], []
+        for first, n in split_geometry(C, p, window, chunk):
+            mine = torch.zeros(C, dtype=torch.bool)
+            mine[_piece_slots(C, first, n)] = True
+            sm = torch.where(mine[None], sb, torch.full_like(sb, -torch.inf))
+            m = sm.amax(-1).clamp(min=NEG_INF)                              # (Hq,)
+            pr = torch.exp(sm - m[:, None])                                 # 0 off piece
+            ms.append(m)
+            ls.append(pr.sum(-1))
+            accs.append(torch.einsum("hc,hcd->hd", pr, vv[b]))
+        m_all = torch.stack(ms)
+        w = torch.exp(m_all - m_all.amax(0))
+        den = (w * torch.stack(ls)).sum(0)
+        num = (w[..., None] * torch.stack(accs)).sum(0)
+        out[b] = num / torch.where(den == 0, torch.ones_like(den), den)[..., None]
+    return out
 
 
 @pytest.mark.parametrize("C", [64, 100, 512])
 @pytest.mark.parametrize("pcase", ["pos<C", "pos=C-1", "pos>2C"])
 @pytest.mark.parametrize("mask", ["none", "window", "chunk"])
 def test_decode_split_merge_rule(C, pcase, mask):
-    """Splitting the ring as the kernel does and merging the partials gives
-    the plain version and the JAX reference, fp32 within 3e-5."""
+    """Splitting each row's valid span as the kernel does and merging the
+    partials gives the plain version and the JAX reference, fp32 within
+    3e-5."""
     kw = {"none": {}, "window": dict(window=48), "chunk": dict(chunk=32)}[mask]
     pos = {"pos<C": [0, 5, 17, C // 2], "pos=C-1": [C - 1] * 4,
            "pos>2C": [2 * C + 1, 2 * C + 7, 3 * C + 3, 5 * C]}[pcase]
@@ -319,19 +324,97 @@ def test_decode_split_merge_rule(C, pcase, mask):
                                             **kw).numpy(), **tol("float32"))
 
 
-@pytest.mark.parametrize("C,n_split,per", [(1, 1, 1), (8, 8, 1), (100, 8, 13),
-                                           (512, 8, 64)])
-def test_decode_split_geometry(C, n_split, per):
-    """At most 8 splits (the cluster size); the ranges cover the ring once,
-    the last one short where C is not a multiple of n_split."""
-    assert split_geometry(C) == (n_split, per)
-    covered = [j for i in range(n_split) for j in range(i * per, min(C, i * per + per))]
-    assert covered == list(range(C))
+@pytest.mark.parametrize("mask", ["none", "window", "chunk"])
+def test_decode_split_merge_rule_long_ring(mask):
+    """The same at mixtral-decide's ring (16,384 slots) at ~2,000 valid
+    positions, where each of the 8 blocks takes ~250 slots, and past the
+    ring's end."""
+    kw = {"none": {}, "window": dict(window=700), "chunk": dict(chunk=1024)}[mask]
+    C = 16384
+    (jq, tq), (jk, tk), (jv, tv) = arrays(12, (2, 6, 16), (2, 2, C, 16),
+                                          (2, 2, C, 16))
+    p = np.asarray([1999, 2 * C + 2741], np.int32)
+    assert [n for _, n in split_geometry(C, 1999)] == [250] * 8
+    out = _split_merge(tq, tk, tv, torch.from_numpy(p), **kw)
+    close(out, jref.ref_decode_attention(jq, jk, jv, jnp.asarray(p), **kw),
+          "float32")
+    np.testing.assert_allclose(
+        out.numpy(), decode_attention_plain(tq, tk, tv, torch.from_numpy(p),
+                                            **kw).numpy(), **tol("float32"))
+
+
+def _hold_pieces(C, p, window=None, chunk=None):
+    """The pieces of a row are disjoint, cover exactly the slots the plain
+    mask shows, differ in length by less than a 64-slot tile, and each walks
+    consecutive positions (a full ring: the ranges of a split by
+    capacity)."""
+    pieces = split_geometry(C, p, window, chunk)
+    assert len(pieces) == min(8, C)
+    slots = [_piece_slots(C, first, n) for first, n in pieces]
+    flat = [j for sl in slots for j in sl]
+    assert len(flat) == len(set(flat)), "pieces overlap"
+    assert sorted(flat) == list(np.flatnonzero(_visible(C, p, window, chunk)))
+    lengths = [n for _, n in pieces]
+    assert max(lengths) - min(lengths) < 64
+    if len(flat) == C:
+        per = -(-C // len(pieces))
+        assert pieces == [(min(C, i * per) % C, min(C, i * per + per) - min(C, i * per))
+                          for i in range(len(pieces))]
+    else:
+        for sl in filter(None, slots):
+            held = [p - (p - j) % C for j in sl]
+            assert held == list(range(held[0], held[0] + len(held)))
+
+
+@pytest.mark.parametrize("C", [100, 512, 4096, 16384])
+@pytest.mark.parametrize("mask", ["none", "window ends mid-range",
+                                  "window wraps past C - 1", "chunk", "long chunk"])
+def test_decode_split_geometry_covers_the_visible_span(C, mask):
+    """``split_geometry`` at pos 0, 1, 63, 64, C - 1, C and past 2C, with a
+    window whose first position falls inside a split by capacity's range, a
+    window that wraps past slot C - 1 (pos C + 10) and chunks."""
+    kw = {"none": {}, "window ends mid-range": dict(window=3 * C // 8 + 5),
+          "window wraps past C - 1": dict(window=48), "chunk": dict(chunk=32),
+          "long chunk": dict(chunk=C // 2 + 3)}[mask]
+    for p in (0, 1, 63, 64, C - 1, C, C + 10, 2 * C + 37, 5 * C - 1):
+        _hold_pieces(C, p, **kw)
+
+
+def test_decode_split_geometry_random_rows():
+    """The same over 2,000 seeded rows: ring, position, window and chunk
+    drawn at random (negative positions read nothing)."""
+    rng = np.random.default_rng(35)
+    for _ in range(2000):
+        C = int(rng.choice([1, 2, 7, 8, 9, 63, 64, 65, 100, 512, 1000]))
+        p = int(rng.integers(-2, 4 * C + 3))
+        window = int(rng.integers(1, 2 * C + 2)) if rng.random() < 0.4 else None
+        chunk = int(rng.integers(1, 2 * C + 2)) if rng.random() < 0.3 else None
+        _hold_pieces(C, p, window, chunk)
+
+
+@pytest.mark.parametrize("C,p,window,chunk,pieces", [
+    (1, 5, None, None, [(0, 1)]),
+    (8, 20, None, None, [(i, 1) for i in range(8)]),
+    # full rings: the ranges of a split by capacity, ceil(C / 8) slots each
+    (100, 250, None, None, [(13 * i, 13) for i in range(7)] + [(91, 9)]),
+    (512, 1000, None, None, [(64 * i, 64) for i in range(8)]),
+    # mixtral-decide: ~2,000 valid positions of 16,384, 250 each
+    (16384, 1999, None, None, [(250 * i, 250) for i in range(8)]),
+    # a window of 48 from slot 4,053 that wraps past slot 4,095
+    (4096, 4100, 48, None, [(4053 + 6 * i, 6) for i in range(7)] + [(4095, 6)]),
+    # the first token: one block reads it, seven are empty
+    (512, 0, None, None, [(0, 1)] + [(1, 0)] * 7),
+    # a chunk of 256 from position 512 (slot 0), 189 positions
+    (512, 700, None, 256, [(24 * i, 24) for i in range(7)] + [(168, 21)]),
+])
+def test_decode_split_geometry(C, p, window, chunk, pieces):
+    """Each block's (first slot, slots) at a few rows, by hand."""
+    assert split_geometry(C, p, window, chunk) == pieces
 
 
 def test_decode_split_geometry_refuses_empty_ring():
     with pytest.raises(ValueError, match="ring of 0 slots"):
-        split_geometry(0)
+        split_geometry(0, 0)
 
 
 @pytest.mark.parametrize("G", [1, 3, 7, 16, 17, 20, 21, 32, 33, 40, 41, 64, 97, 128])
