@@ -3,226 +3,45 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught):
-  1. build the CUDA kernels from src/repro_torch/kernels/csrc/ and print the
-     build time and each kernel's ptxas registers, shared memory and spills
-     (any spill fails the run), the 12 attention instances at head dims
-     16 and 32 (flash mma and fma, decode and int8 decode in bf16 and fp32)
-     and the 12 WKV instances (prefill and decode, bf16 and fp32, head dims
-     16, 32 and 64) and the 4 rope instances by name;
-  2. hold each kernel against its plain PyTorch version on the card, in bf16
-     (atol = rtol = 2e-2) and fp32 (1e-4, sums in another order), at the main
-     paths' shapes and ragged ones: flash and decode at every served
-     path's (head dim, query heads, KV heads) of SERVED_PATHS and at d 96,
-     G = 4; decode rings whose length is not a
-     multiple of the split (C = 100) and whose splits are wholly masked or
-     empty, windows that end inside a split, prompts whose packed rows cross
-     the S*G edge, S = 512 (the engine's max_len); G = 16 at d 64; the int8
-     decode kernel on rings of 64, 100 and 512 slots at G = 3 and 16 (d 64)
-     and G = 1, 4 and 16 (d 96, 128), with windows, chunks, and a ring
-     holding empty (scale 0) and prefill-pad (scale 1.0) slots; decode and
-     int8 decode at groups cut into group tiles (G 40 and 64 over one KV
-     head, G 40 over two, G 41 with a short last tile, at d 64 and 128;
-     fp32 also G 32 and 21 at d 96 and 128); a head dim that is not built
-     (80 for attention, 48 for WKV) must raise and launch nothing; rmsnorm
-     at every served path's d_model and d 16 at 1, 4, 48, 64 and 257 rows,
-     at d 100,
-     on views off 16 bytes (its scalar path) and at qwen3-4b's
-     qk_norm shapes (q (2,37,8,4,128), k (2,37,8,128)), its C++ launch
-     geometry equal to kernels/rmsnorm.py's; WKV at head dims 64 (64
-     heads), 16 (4) and 32 (8) around its staged chunk of T steps (T - 1,
-     T, T + 1), at S = 512, from a random state and in place, its state
-     bit-identical to the plain version's;
-     flash at llava's heads (d 128, G 7) at its image request's length (S
-     2,912) and at S 2,917, both ragged; prompts of S 32 (seamless's padded
-     decoder prompt) and decode rings of 256 slots (seamless's
-     cross-attention: the encoder's K/V of a cache layer, pos = C - 1) at
-     every served head shape; flash and decode at head dims 16 and 32
-     (SMALL_HEADS: G 1, 2 and 4, every mask, ragged S and C) and the int8
-     kernel there at G 4, 2, 1 and 16; rope at ROPE_SHAPES (granite's and
-     mixtral's decode steps with the ring write at slots 0, C - 1, C and
-     past 2C, their prefills at S 2,048 and 8,192), phi3's head dim 96, the
-     reduced head dim 16 and a q view off 16 bytes (its scalar path), each
-     logged bit for bit or not. A misaligned view of an attention (bf16 or
-     int8) or WKV input, or of a ring rope_append writes, must raise and
-     launch nothing; so must rope at an odd head dim; decode attention at
-     the benchmark cells' decode steps (SERVED_DECODE: granite-decide's,
-     mixtral-decide's and mixtral-react's batch of 32, each row at its own
-     position; a ragged mixtral-decide batch with pos 0, ~2,000, C - 1 and a
-     wrapped row; the int8 kernel at mixtral-decide's shape), bf16, held
-     also row by row relative to each row's size. Time kernel, plain version and the library call
-     (CUDA events, median of 50) at each served path's shapes (dcache,
-     qwen3-4b, phi3-mini-3.8b, qwen1.5-32b's decode, mixtral's G 6,
-     llama4's G 5 and llava's G 7 at d 128, seamless's MHA at d 64),
-     prefill also at S = 512, llava's image prefill, seamless's encoder
-     unmasked at its 256 frames, its cross-attention decode at C 256, the
-     three attention kernels at head dims 16 and 32 at the reduced
-     dcache's heads and the serving bench's shapes, decode at G 40 (d 128)
-     and G 64 (d 64, also int8) in two group tiles, WKV and the per-head
-     rmsnorm at the reduced rwkv6's head dim 16 (and WKV at 32), rope at
-     ROPE_SHAPES (with the launch API calls a call of kernel and plain
-     version make), decode attention at SERVED_DECODE's steps (kernel and
-     bound only, with the blocks an SM and the clusters the card holds at
-     once), and an empty kernel (the launch floor);
-  3. serve twelve paths at full width in bf16, each with random weights from
-     a seeded torch.Generator, through ServingEngine(max_batch=4,
-     max_len=512) (8 prompts x 32 new tokens) and then one
-     TorchLLM.complete: dcache-agent-150m (dense: rmsnorm, prefill and
-     decode attention), dcache-agent-150m with kv_quant (the int8 KV cache:
-     every decode attention launch is the int8 kernel's), rwkv6-7b (ssm:
-     rmsnorm and the WKV kernel), qwen3-4b (d 128, G 4, qk_norm on the
-     rmsnorm kernel), granite-3-2b (d 64, G 4, tied), phi3-mini-3.8b (d 96,
-     MHA), qwen1.5-32b (d 128, MHA, QKV bias; 70.4 GB of weights), then
-     the MoE and hybrid families: mixtral-8x22b (d 128, G 6; 12 of its 56
-     layers, width unchanged: 30.45 B parameters, 60.9 GB),
-     llama4-maverick-400b-a17b (d 128, G 5; 4 of 48 layers, two dense/MoE
-     super-layers, 128 experts and the shared one: 35.04 B parameters,
-     70.1 GB) and hymba-1.5b (d 64, G 3, Mamba heads beside attention, full
-     depth), then the encoder-decoder and the VLM: seamless-m4t-large-v2
-     (24 + 24 layers, d 64 MHA; the engine does not take it, so 4 requests
-     of 256 frames and a 16-32 token prompt go through
-     launch.serve.generate_encdec: prefill_step, ring 512, and 32 greedy
-     decode_steps; the encoder's attention on the flash kernel unmasked,
-     cross-attention decode on the decode kernel) and llava-next-34b at
-     full depth (d 128, G 7; 68.88 GB; text through the engine, then one
-     image request: 2,880 patches before a 32-token prompt through
-     prefill_step, ring 4,096, B 1, and 32 decode_steps, after the
-     engine's cache is freed); each depth is fixed and asserted to fit the
-     card's free memory (with llava's image ring) before anything is
-     drawn. MoE and hybrid launch only the dense rule's
-     kernels (the expert products and the SSM scan are torch ops, as they
-     are XLA ops in JAX). The launch counters are reset before each path
-     and must then equal the exact numbers the path implies. Profile a
-     decode step, a prefill (each kernel's device time per launch in them,
-     the launch API calls per call) and the unembed (held against an fp32
-     product within 1e-3); record the KV cache's bytes on the card;
-  paged: a full-width PagedKVCache for dcache-agent-150m filled from the
-     engine's own prefill and decode steps (write_prompt, append): gather
-     must equal the engine's ring bit for bit, fork_seq must share full
-     pages and copy the tail, and paged_decode_attention (the decode kernel
-     on the gathered view) must equal its plain version, with exact launch
-     counts;
-  assigned shapes: full-width dcache-agent-150m in bf16 at decode_32k (B
-     128 over a ring of 32,768 slots drawn whole from a seeded generator, 3
-     warm-up and 10 timed decode_steps, a profiled one; the step against
-     analytic_hbm_bytes / 3.35 TB/s; layer 0's decode attention at this size
-     against its plain version) and prefill_32k (B 32 x S 32,768 through
-     prefill_step, the batch cut if its working set would not fit; flash's
-     share of the profiled device time; one layer's flash against SDPA's
-     time, one (row, head) of it against the plain version of that head);
-     both holds absolute and, output row by output row, relative to the
-     row's own rms (a long softmax's outputs are below the absolute
-     tolerance); train_4k (B 256 x S 4,096, 1 M tokens a step) through
-     TrainLoop with accumulated micro-batches: one 8 x 4,096 micro-batch's
-     peak memory sets the smallest accumulation predicted to stay under 70
-     GiB, which runs a warm-up and two timed steps (step ms, tokens/s,
-     peak, model-FLOP share; one micro-batch profiled for its busy share);
-     long_500k's skip text is logged;
-  bench: repro_torch.launch.serving_bench's run_bench at its reference
-     configuration (head dim 16) with its rows and exact launch counts, phase
-     3's dcache workload 5 times in this process after a warm-up (median,
-     min and max of tok/s, mean TTFT and decode step), bench_kernels' row;
-  agent: the paper's own system on the card: full-width dcache-agent-150m
-     in bf16 (ServingEngine(max_batch=4, max_len=512), 32 new tokens a
-     decision) behind TorchLLM as LLMController's decision model for every
-     read and update decision of 8 tasks of Table I's workload
-     (build_tasks(8, reuse_rate=0.8, seed=1)), composed by hand from
-     build_runtime's parts with SimLLM driving the runner, beside the same
-     tasks without the cache; reports the decisions, each prompt's bytes
-     and the bytes the engine kept, the median and maximum decision wall
-     ms (synchronized), the parse fallbacks (an untrained byte-level model
-     rarely writes JSON: the controller then takes the programmatic plan)
-     and degraded calls, the cache's hits and the sim-clock avg_time_s of
-     both runs and their ratio; the phase's launch counts exactly those of
-     the engine's prefills and steps; then the port's Tables I-III
-     (table1(n=40), table2(n=30), table3(n=30)) on the card's host against
-     the digests that lock the reference;
-  concurrent: the paper's deployment regime on the card: the port's
-     ConcurrentEpisodeEngine (8 sessions x 5 tasks over 4 pods of capacity
-     5, TinyLFU admission and hot-key replication both GPT-driven, zipf
-     1.1 with a global ranking: table_replication's headline cell cut to 8
-     sessions) with one DecisionLog-wrapped TorchLLM over full-width
-     dcache-agent-150m in bf16 (ServingEngine(max_batch=4, max_len=512),
-     32 new tokens a decision) set as the admission and the replication
-     policies' LLM after construction (the sessions' runners keep their
-     SimLLMs), beside the same episode with the engine's own SimLLM planes
-     (34 admission and 8 replication decisions); reports the decisions by
-     plane, each prompt's bytes and the bytes the engine kept, the median
-     and maximum decision wall ms (synchronized), each plane's parse
-     fallbacks and degraded calls, and both runs' sim-clock p50 and p95
-     task latency, local hit rate, replication agreement and stall; the
-     phase's launch counts exactly those of the engine's prefills and
-     steps; then the digest-locked concurrent tables (table_concurrency,
-     table_prefetch, table_admission, table_replication at 25 tasks a
-     session, belady_bound(200), table_resilience(12) with an empty
-     MutationPlan) on the card's host;
-  4. for the first three paths, qwen3-4b, phi3-mini-3.8b, qwen1.5-32b,
-     mixtral-8x22b (MoE, G 6), hymba-1.5b (attention and Mamba heads),
-     seamless-m4t-large-v2 (64 frames a prompt) and llava-next-34b (16
-     patches before each prompt): every head dim and group of phase 3 but
-     llama4's G 5, the full-width weights cut to 2 layers, in fp32,
-     on the CPU (plain versions) and on the card (kernels): prefill + 8
-     greedy decode steps on 3 prompts; logits within 1e-3 and the same greedy
-     tokens (or a top-2 gap within the tolerance where a token differs); the
-     int8 codes may differ by one where a value lies on a rounding edge.
-     Attention prompts are right-padded with true_lens; rwkv and hymba
-     prompts are prefilled one by one at their own length, since padding
-     would enter the recurrent state. llama4-maverick is left out: one
-     super-layer at full width is 74 GB of fp32 weights on the host; its
-     heads are held in phase 2 and its numerics against JAX on the CPU
-     (tests/test_torch_moe.py). Then the reduced configs (head dim 16,
-     vocab 512) of every family the same way (REDUCED_ARCHS: dcache, rwkv6
-     (WKV at head dim 16), the four dense variants, mixtral, llama4,
-     hymba, seamless and llava; a prompt longer than a window's ring
-     prefilled at its own length); the reduced dcache in fp32 as the cache
-     controller's decision model for 2 tasks on the CPU and on the card
-     (the same completions and TaskTraces, the card's launch counts
-     exact); the same reduced dcache behind the concurrent engine's
-     admission and replication planes in episodes of 2 x 2 and 3 x 2 tasks
-     over 2 pods of capacity 2 on the CPU and on the card (the same
-     completions and EpisodeMetrics row, the card's launch counts exact);
-     and launch.serve's --smoke main (dcache,
-     and --arch rwkv6-7b) and launch.serve_llm's on the card, held to the
-     launch counts of the engines they return;
-  5. training (freeing the card before and after): full-width
-     dcache-agent-150m in bf16 through the twin's own train() of
-     repro_torch.launch.serve_llm, 30 AdamW steps at 8 x 512 tokens; every
-     loss and grad_norm finite, the loss down by at least 0.5 (mean of the
-     last 5 against the first 5), no kernel launched in training, the
-     same 30 steps with remat="dots" beside them (step ms, peak memory,
-     every loss within 1e-3 relative), the
-     params bf16 without grad after it; those params then serve the twin's 8
-     prompts through its serve() with the launch counts of phase 3's rule,
-     and one TorchLLM decision. Reports the median step, tokens/s, peak
-     memory, the launch API calls and busy share of 3 profiled steps, and
-     the model-FLOP share of the bf16 peak. Then one make_train_step step
-     at fp32, 2 layers of full width, on the CPU and on the card, for
-     dcache-agent-150m (B 2, S 64) and rwkv6-7b (B 1, S 32): the loss within
-     1e-4 relative, grad_norm within 1e-3;
-  6. checkpoints (freeing the card before and after): full-width
-     dcache-agent-150m in bf16 trained through repro_torch.launch.train
-     (--preset full, 8 x 512, 4 steps, no kernel launched) with exactly one
-     save, at the end (the reference's format: msgpack records, zlib where
-     zstandard is absent, blake2b digests); a cold restart with --resume on
-     the card and another on the CPU, each equal to the saved params (bf16),
-     moments (fp32) and step bit for bit; the restored weights serve the
-     twin's 8 prompts with phase 3's launch rule and the same tokens as the
-     saved ones; then repro_torch.launch.train_tiny on the card (reduced
-     qwen3-4b, 60 steps, two failures recovered from disk, a cold restart).
-     Reports bytes on disk, the codec, the save's seconds and MB/s (the
-     JAX-layout stack on the card, timed again on the saved state, plus the
-     checkpointer's copy to the host and write) and each cold restart's
-     (the whole of building the loop with --resume, and the checkpointer's
-     host read within it);
-  7. print the card's name and power limit and the kernels' JSON line, then
-     the result line.
-
-It imports nothing of JAX or of the JAX package ``repro``. Without a CUDA
-device, or outside a checkout of the repository, it exits non-zero and
-prints no result.
+Any failure exits non-zero (nothing is caught). Kernel launches are
+counted at the C boundary (``counting_launches``) and held to the exact
+numbers each path implies (``expected_launches``). The phases, in order:
+  1. build: the kernels of src/repro_torch/kernels/csrc/, each instance's
+     ptxas registers and spills (any spill fails), the 12 attention
+     instances at head dims 16 and 32, the 12 WKV and the 4 rope ones;
+  2. kernels against their plain versions (bf16 2e-2, fp32 1e-4) at every
+     served and many ragged shapes (``check_kernels``); misaligned views
+     and unbuilt shapes raise and launch nothing; then the kernel timings
+     behind PERF.md's kernel table (``time_kernels``);
+  3. twelve paths served at full width in bf16 (``SERVED_PATHS``): tokens
+     in the vocabulary, exact launches, the unembed within 1e-3 of fp32;
+  paged: a full-width PagedKVCache against the engine's ring, bit for bit;
+  assigned shapes: decode_32k and prefill_32k (kernel against plain,
+     absolutely and row by row; the kernel timings of their table rows),
+     train_4k (its memory fit and steps, finite losses, no launch);
+  bench: the serving bench's twin, its rows and launches;
+  agent: the paper's cache decisions made by the served model over 8
+     tasks, then Tables I-III against their locked digests;
+  concurrent: the concurrent engine's admission and replication planes
+     served by the model beside SimLLM's (34 + 8 decisions), then the six
+     concurrent tables against their digests;
+  4. CPU (plain versions) against the card (kernels) at fp32: logits within
+     1e-3 and the same greedy tokens, for 2-layer full-width and reduced
+     paths, the reduced model behind the agent and the concurrent engine,
+     and the launchers' --smoke mains;
+  5. training: 30 steps through serve_llm.train (the loss falls by 0.5,
+     remat dots within 1e-3 of block, no launch), the trained weights
+     served; one train step on CPU and card (loss 1e-4, grad_norm 1e-3);
+  6. checkpoints: one save, cold restarts on card and CPU bit for bit, the
+     restored weights served with the saved ones' tokens; train_tiny;
+  7. the card's name and power limit, the kernels' JSON line and the result
+     line; the rest goes to chiprun_out/chip_smoke.json.
+It imports nothing of JAX or of ``repro``. Without a CUDA device, or outside
+a checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -249,15 +68,12 @@ PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-# calls per profiled step or prefill: the profiler's own processing of
-# every launch is most of a host-bound path's phase 3 time (each profile
-# logs its seconds), and a step's device time varies < 3% between calls
-PROFILE_ITERS = 3
-# each wrapper's kernel names in the profiler (a substring of each instance)
-KERNEL_NEEDLES = {"rmsnorm": "rmsnorm_kernel", "flash_attention": "flash_kernel",
-                  "decode_attention": "decode_kernel",
-                  "decode_attention_int8": "decode_int8_kernel",
-                  "wkv": "wkv_kernel", "rope": "rope_kernel"}
+# the C entry points that launch a kernel, each with the name its launches
+# are counted under (rope_append launches the rope kernel)
+LAUNCHERS = {"repro_rmsnorm": "rmsnorm", "repro_flash_attention": "flash_attention",
+             "repro_decode_attention": "decode_attention",
+             "repro_decode_attention_int8": "decode_attention_int8",
+             "repro_wkv": "wkv", "repro_rope": "rope"}
 
 
 def log(*a):
@@ -284,11 +100,10 @@ LAUNCH_APIS = ("cudaLaunchKernel", "cuLaunchKernelEx", "cudaLaunchKernelExC",
                "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
-def device_profile(fn, iters, table_file=None, warmup=True):
+def device_profile(fn, iters, warmup=True):
     """torch.profiler over ``iters`` calls of fn (after one more unless
-    ``warmup`` is False): device time per call by kernel name (us), the
-    device-busy share of the host wall time, the host wall time per call
-    (us) and the launch API calls per call."""
+    ``warmup`` is False): device time per call by kernel name (us) and the
+    launch API calls per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -296,11 +111,9 @@ def device_profile(fn, iters, table_file=None, warmup=True):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
     per_call, n_launch = {}, 0
     for a in prof.key_averages():
         if a.device_type == DeviceType.CUDA:
@@ -308,11 +121,37 @@ def device_profile(fn, iters, table_file=None, warmup=True):
                                + a.self_device_time_total / iters)
         elif a.key in LAUNCH_APIS:
             n_launch += a.count
-    if table_file:
-        with open(os.path.join(OUT_DIR, table_file), "w") as f:
-            f.write(prof.key_averages().table(row_limit=60))
-    return (per_call, sum(per_call.values()) * iters / wall_us, wall_us / iters,
-            n_launch / iters)
+    return per_call, n_launch / iters
+
+
+@contextlib.contextmanager
+def counting_launches():
+    """Count the kernel launches made inside the block at the C boundary:
+    each entry point of LAUNCHERS on the kernel library is replaced by a
+    wrapper that calls it and counts a call that returned 0 under its
+    kernel's name. Yields the counts (every kernel's name, from 0); the
+    entry points are put back on exit, also after an exception."""
+    from repro_torch.kernels import _build
+
+    lib = _build.load_library()
+    counts = dict.fromkeys(LAUNCHERS.values(), 0)
+    originals = {entry: getattr(lib, entry) for entry in LAUNCHERS}
+
+    def counted(name, fn):
+        def call(*args):
+            err = fn(*args)
+            if err == 0:
+                counts[name] += 1
+            return err
+        return call
+
+    try:
+        for entry, fn in originals.items():
+            setattr(lib, entry, counted(LAUNCHERS[entry], fn))
+        yield counts
+    finally:
+        for entry, fn in originals.items():
+            setattr(lib, entry, fn)
 
 
 def kernel_device_us(per_call, needle):
@@ -469,21 +308,14 @@ def check_kernels(errs):
             check_attention(gen, dtype, d, Hq, Hkv, errs)
         check_image_prefill(gen, dtype, errs)
         check_group16(gen, dtype, errs)
-        t0 = time.perf_counter()
         check_group_tiles(gen, dtype, errs)
-        log(f"  group tiles {str(dtype)[6:]}: {time.perf_counter() - t0:.1f} s")
         for d in HEAD_DIMS:
             check_int8(gen, dtype, d, errs)
         check_rope(gen, dtype, errs)
         check_misaligned(gen, dtype)
         check_refused(gen, dtype)
-    t0 = time.perf_counter()
     check_served_decode(gen, errs)
-    log(f"  served decode steps: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
     check_wkv(errs)
-    log(f"  wkv at head dims {sorted(hd for hd, _ in WKV_HEADS)}: "
-        f"{time.perf_counter() - t0:.1f} s")
 
 
 def check_attention(gen, dtype, d, Hq, Hkv, errs):
@@ -858,26 +690,26 @@ def check_misaligned(gen, dtype):
         .view(1, S, Hkv, d).transpose(1, 2)
     scales = torch.ones((1, Hkv, S), dtype=dtype, device="cuda")
     ring = randn(gen, S * Hkv * d + 1, dtype=dtype)[1:].view(1, S, Hkv * d)
-    before = ops.launch_counts()
-    for name, call in (
-            ("rope_append", lambda: ops.rope_append(
-                rk[:, :1], rk[:, :1], rk[:, :1],
-                torch.zeros(1, dtype=torch.int32, device="cuda"), ring, ring,
-                10_000.0)),
-            ("flash_attention", lambda: ops.flash_attention(q, k, k)),
-            ("decode_attention", lambda: ops.decode_attention(
-                q[:, :, 0], k, k, torch.zeros(1, dtype=torch.int32, device="cuda"))),
-            ("decode_attention_int8", lambda: ops.decode_attention_int8(
-                k[:, :, 0].contiguous(), codes, codes, scales, scales,
-                torch.zeros(1, dtype=torch.int32, device="cuda"))),
-            ("wkv", lambda: ops.wkv(r, rk, rk, w, u))):
-        try:
-            call()
-        except ValueError as e:
-            log(f"  {name} misaligned view {str(dtype)[6:]}: raised ({e})")
-        else:
-            raise AssertionError(f"{name}: a misaligned view did not raise")
-    assert ops.launch_counts() == before, "a misaligned view launched a kernel"
+    with counting_launches() as counts:
+        for name, call in (
+                ("rope_append", lambda: ops.rope_append(
+                    rk[:, :1], rk[:, :1], rk[:, :1],
+                    torch.zeros(1, dtype=torch.int32, device="cuda"), ring, ring,
+                    10_000.0)),
+                ("flash_attention", lambda: ops.flash_attention(q, k, k)),
+                ("decode_attention", lambda: ops.decode_attention(
+                    q[:, :, 0], k, k, torch.zeros(1, dtype=torch.int32, device="cuda"))),
+                ("decode_attention_int8", lambda: ops.decode_attention_int8(
+                    k[:, :, 0].contiguous(), codes, codes, scales, scales,
+                    torch.zeros(1, dtype=torch.int32, device="cuda"))),
+                ("wkv", lambda: ops.wkv(r, rk, rk, w, u))):
+            try:
+                call()
+            except ValueError as e:
+                log(f"  {name} misaligned view {str(dtype)[6:]}: raised ({e})")
+            else:
+                raise AssertionError(f"{name}: a misaligned view did not raise")
+    assert not any(counts.values()), "a misaligned view launched a kernel"
 
 
 def check_refused(gen, dtype):
@@ -891,7 +723,6 @@ def check_refused(gen, dtype):
     codes = torch.zeros((1, 4, 8, 80), dtype=torch.int8, device="cuda")
     scales = torch.ones((1, 4, 8), dtype=dtype, device="cuda")
     p = torch.zeros(1, dtype=torch.int32, device="cuda")
-    before = ops.launch_counts()
     calls = [("flash_attention", ValueError, lambda: ops.flash_attention(q, k, k)),
              ("decode_attention", ValueError,
               lambda: ops.decode_attention(q[:, :, 0], k, k, p)),
@@ -906,14 +737,15 @@ def check_refused(gen, dtype):
     calls.append(("rope", ValueError,
                   lambda: ops.rope(r15, r15, torch.arange(8, dtype=torch.int32,
                                                           device="cuda"), 1e4)))
-    for name, exc, call in calls:
-        try:
-            call()
-        except exc as e:
-            log(f"  {name} refused {str(dtype)[6:]}: raised ({e})")
-        else:
-            raise AssertionError(f"{name}: an unbuilt shape did not raise")
-    assert ops.launch_counts() == before, "a refused shape launched a kernel"
+    with counting_launches() as counts:
+        for name, exc, call in calls:
+            try:
+                call()
+            except exc as e:
+                log(f"  {name} refused {str(dtype)[6:]}: raised ({e})")
+            else:
+                raise AssertionError(f"{name}: an unbuilt shape did not raise")
+    assert not any(counts.values()), "a refused shape launched a kernel"
 
 
 def wkv_inputs(gen, B, S, H, hd, dtype):
@@ -1081,7 +913,7 @@ def time_rope(gen):
         n = B * S * (Hq + KV) * hd
         nb = 2 * (n + (B * KV * hd if C else 0)) * es + 4 * (B if C else S)
         b, by = bound_ms(nb, 3 * n, torch.float32)
-        per_call, _, _, launches = device_profile(run, 20)
+        per_call, launches = device_profile(run, 20)
         key = "rope" if name == "granite decode" else "rope_" + name.replace(" ", "_")
         rows[key] = dict(
             shape=(f"q ({B},{S},{Hq},{hd}), k ({B},{S},{KV},{hd}) bf16"
@@ -1091,7 +923,7 @@ def time_rope(gen):
             library_ms=None, library_device_us=None,
             device_us=kernel_device_us(per_call, "rope_kernel"),
             bound_ms=b, bound_by=by, launch_api_calls=launches,
-            plain_launch_api_calls=device_profile(plain, 5)[3])
+            plain_launch_api_calls=device_profile(plain, 5)[1])
         log(f"  rope {name}: launch API calls a call, kernel {launches:.0f}, "
             f"plain {rows[key]['plain_launch_api_calls']:.0f}")
     return rows
@@ -1313,27 +1145,11 @@ def serve_bytes(cfg, max_batch=4, max_len=512):
         alloc_cache(cfg, max_batch, max_len, torch.device("meta")))
 
 
-def decode_read_bytes(cfg, rows=4):
-    """The weight bytes a decode step of ``rows`` tokens must read: every
-    leaf but the frontend's projection and the encoder (run at prefill
-    only), and of an untied input embedding only the rows it gathers."""
-    from repro_torch.bridge import _dict_map, param_shapes
-    from repro_torch.launch.serve import weight_bytes
-
-    es = torch.empty((), dtype=cfg.torch_dtype).element_size()
-    skip = {k: v for k, v in param_shapes(cfg).items()
-            if k in ("enc", "frame_proj", "patch_proj")}
-    nbytes = weight_bytes(cfg) - es * sum(tree_leaves(_dict_map(math.prod, skip)))
-    if not cfg.tie_embeddings:
-        nbytes -= (cfg.padded_vocab - rows) * cfg.d_model * es
-    return nbytes
-
-
 def load_path(arch, kv_quant=False, n_layers=None, extra_bytes=0):
     """``arch`` (depth cut to ``n_layers`` if given) with seeded random bf16
     weights on the card, after asserting that they, the engine's cache and
     ``extra_bytes`` fit its free memory. Returns (cfg, params, generator,
-    metrics)."""
+    record)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_model
 
@@ -1349,65 +1165,16 @@ def load_path(arch, kv_quant=False, n_layers=None, extra_bytes=0):
         f"{free / 2**30:.2f} GiB free on the card at {cfg.n_layers} layers "
         f"({cut})")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    t0 = time.perf_counter()
     params = init_model(cfg, gen, "cuda")
-    torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    # a decode step cannot read its weights faster than the card's memory
-    # rate; the MoE dispatch reads every expert at every step
-    m = dict(arch=arch, kv_quant=kv_quant, params=n_params,
-             init_s=time.perf_counter() - t0, n_layers=cfg.n_layers,
-             full_layers=full.n_layers, free_bytes=free,
-             weights_read_floor_ms=1e3 * decode_read_bytes(cfg) / PEAK_BYTES_S)
     log(f"  {cfg.name}: {n_params / 1e6:.1f} M params summed from the tensors "
         f"({cfg.param_count() / 1e6:.1f} M by ModelConfig.param_count), "
-        f"{cfg.dtype}, L={cfg.n_layers} d={cfg.d_model}, family {cfg.family}; "
-        f"init {m['init_s']:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-        f"allocated")
-    return cfg, params, gen, m
+        f"{cfg.dtype}, L={cfg.n_layers} d={cfg.d_model}, family {cfg.family}")
+    return cfg, params, gen, dict(params=n_params, n_layers=cfg.n_layers,
+                                  full_layers=full.n_layers)
 
 
-def profile_path(cfg, m, tag, cases):
-    """Where a step's time goes: for each (key, label, fn, iters) of
-    ``cases`` the device time by kernel, the busy share, the launch API
-    calls and each kernel's launches and device time per launch, into
-    ``m`` under ``key``; the profiler's table into chiprun_out/."""
-    from repro_torch.kernels import ops
-
-    for key, what, fn, iters in cases:
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        per_call, busy, wall_us, api_launches = device_profile(
-            fn, iters, f"profile_{tag}_{'decode_step' if key == 'decode' else key}.txt")
-        m[f"{key}_profile_s"] = time.perf_counter() - t0
-        # device_profile calls fn once to warm up, then iters times
-        launches = {k: v / (iters + 1)
-                    for k, v in ops.launch_counts().items() if v}
-        dev_us = sum(per_call.values())
-        top = sorted(per_call.items(), key=lambda kv: -kv[1])[:6]
-        # each kernel's device time per launch inside the step or prefill
-        in_step = {n: kernel_device_us(per_call, KERNEL_NEEDLES[n]) / c
-                   for n, c in launches.items()}
-        if key == "decode" and (cfg.family in ("moe", "encdec", "vlm")):
-            log(f"  decode step device {dev_us / 1e3:.3f} ms against the "
-                f"weights-read floor {m['weights_read_floor_ms']:.3f} ms "
-                f"({decode_read_bytes(cfg) / 1e9:.2f} GB at 3.35 TB/s)")
-        log(f"  profile {what} ({iters} calls, {m[f'{key}_profile_s']:.1f} s "
-            f"with the profiler's processing): host wall {wall_us / 1e3:.3f} ms/call, device "
-            f"{dev_us / 1e3:.3f} ms/call, device busy {100 * busy:.1f}%; "
-            f"launch API calls/call {api_launches:.1f}; "
-            f"kernel launches/call {launches}; device us per launch "
-            + ", ".join(f"{n} {t:.2f}" for n, t in in_step.items()) + "; top: "
-            + "; ".join(f"{k[:48]} {t:.1f} us" for k, t in top))
-        m[f"{key}_per_launch_us"] = in_step
-        m[f"{key}_wall_ms"] = wall_us / 1e3
-        m[f"{key}_device_ms"] = dev_us / 1e3
-        m[f"{key}_busy"] = busy
-        m[f"{key}_launch_api_calls"] = api_launches
-        m[f"{key}_top_us"] = dict(top)
-
-
-def check_unembed(cfg, params, gen, m):
+def check_unembed(cfg, params, gen):
     """The unembed at a decode step: the bf16 GEMM with fp32 output against
     an fp32 copy of the weight (same accumulation, extra traffic)."""
     from repro_torch.models.model import _unembed
@@ -1417,15 +1184,9 @@ def check_unembed(cfg, params, gen, m):
     V = cfg.vocab_size
     err = (_unembed(cfg, params, h)[..., :V]
            - (h.float() @ w.float())[..., :V]).abs().max().item()
-    assert err <= 1e-3, f"unembed differs from the fp32 product by {err:.3e}"
-    m["unembed_device_us"] = sum(device_profile(
-        lambda: _unembed(cfg, params, h), 20)[0].values())
-    m["unembed_fp32_copy_device_us"] = sum(device_profile(
-        lambda: h.float() @ w.float(), 20)[0].values())
     log(f"  unembed (4,1,{cfg.d_model}) x ({cfg.d_model},{cfg.padded_vocab}): "
-        f"device {m['unembed_device_us']:.2f} us/call; with an fp32 copy of the "
-        f"weight {m['unembed_fp32_copy_device_us']:.2f} us/call; "
-        f"max |diff| {err:.3e} <= 1e-3")
+        f"max |diff| from the fp32 product {err:.3e} <= 1e-3")
+    assert err <= 1e-3, f"unembed differs from the fp32 product by {err:.3e}"
 
 
 def image_ring_bytes(cfg):
@@ -1438,105 +1199,55 @@ def image_ring_bytes(cfg):
 
 def serve_workload(eng, n_new=32):
     """Phase 3's workload on ``eng``: the 8 PROMPTS of ``n_new`` tokens
-    each, served to completion. Returns the generated tokens, the wall
-    time, tokens/s, the mean TTFT and the median decode-only step (host
-    clock; a step ends when its sampled tokens reach the host)."""
-    t0 = time.perf_counter()
+    each, served to completion."""
     reqs = [eng.submit(p, max_new_tokens=n_new) for p in PROMPTS]
-    decode_only = []
     while eng.waiting or any(s is not None for s in eng.slots):
-        n_pre = eng.prefills
-        ts = time.perf_counter()
         eng.step()
-        if eng.prefills == n_pre:
-            decode_only.append(time.perf_counter() - ts)
-    wall = time.perf_counter() - t0
     assert all(r.done and 1 <= len(r.out_ids) <= n_new for r in reqs), "unfinished"
-    n = sum(len(r.out_ids) for r in reqs)
-    ttft = statistics.fmean(r.first_token_at - r.submitted_at for r in reqs)
-    return dict(tokens=n, wall_s=wall, tok_s=n / wall, mean_ttft_ms=1e3 * ttft,
-                decode_step_ms=1e3 * statistics.median(decode_only),
-                decode_steps_timed=len(decode_only))
 
 
 def serve_full_width(arch, kv_quant=False, n_layers=None):
+    """``arch`` at full width (depth cut to ``n_layers`` if given) through
+    ServingEngine(max_batch=4, max_len=512): the 8 PROMPTS of 32 new tokens
+    and one TorchLLM.complete with exact launch counts, then the unembed;
+    llava then serves its image request (``image_request``)."""
     from repro_torch.agent import TorchLLM
-    from repro_torch.configs import alloc_cache, get_config
-    from repro_torch.kernels import ops
-    from repro_torch.models.model import decode_step, prefill_step
+    from repro_torch.configs import get_config
     from repro_torch.serving import ServingEngine
 
     full = get_config(arch)
     vlm = full.frontend == "vision_patches"
     cfg, params, gen, m = load_path(arch, kv_quant, n_layers, extra_bytes=(
         image_ring_bytes(full) if vlm else 0))
-    # warm-up (cuBLAS handles, allocator) on a throw-away engine
-    ServingEngine(cfg, params, max_batch=4, max_len=512,
-                  device="cuda").generate_text(PROMPTS[0], max_new_tokens=4)
-    torch.cuda.synchronize()
-
     eng = ServingEngine(cfg, params, max_batch=4, max_len=512, device="cuda")
-    if cfg.family != "ssm":
-        # the KV cache on the card, against the bf16 ring of the same engine
-        bf16 = alloc_cache(dataclasses.replace(cfg, kv_quant=False), 4, 512,
-                           torch.device("meta"))
-        m.update(kv_cache_bytes=cache_bytes(eng.cache),
-                 kv_cache_bytes_bf16=cache_bytes(bf16))
-        log(f"  KV cache on the card: {m['kv_cache_bytes'] / 2**20:.3f} MiB "
-            f"({'int8 codes + scales' if kv_quant else cfg.dtype}); the "
-            f"{cfg.dtype} ring: {m['kv_cache_bytes_bf16'] / 2**20:.3f} MiB")
-        if kv_quant:
-            assert eng.cache["k"].dtype == torch.int8 and "k_scale" in eng.cache
-    ops.reset_launch_counts()
-    w = serve_workload(eng)
-    text = TorchLLM(eng, max_new_tokens=32).complete(PROMPTS[1])
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    if kv_quant:
+        assert eng.cache["k"].dtype == torch.int8 and "k_scale" in eng.cache
+    with counting_launches() as counts:
+        serve_workload(eng)
+        text = TorchLLM(eng, max_new_tokens=32).complete(PROMPTS[1])
+        torch.cuda.synchronize()
 
     assert eng.finished[-1].done, "unfinished"
     assert all(0 <= t < cfg.vocab_size for r in eng.finished for t in r.out_ids)
     assert isinstance(text, str)
     expected = expected_launches(cfg, eng.prefills, eng.steps)
     log(f"  prefills={eng.prefills} decode_steps={eng.steps} "
-        f"launches={counts} expected={expected}")
+        f"launches={counts} expected={expected}; TorchLLM -> {text!r}")
     assert counts == expected, "launch counts differ from the main path's"
-    m.update(w, prefills=eng.prefills, steps=eng.steps, launches=counts)
-    log(f"  serving: {w['tokens']} tokens in {w['wall_s']:.3f} s = "
-        f"{w['tok_s']:.1f} tok/s, mean TTFT {w['mean_ttft_ms']:.2f} ms, decode "
-        f"step (median of {w['decode_steps_timed']}) {w['decode_step_ms']:.3f} "
-        f"ms; TorchLLM -> {text!r}")
-
-    # Attention prompts are padded to a bucket (64 here); rwkv and hymba
-    # prompts run at their exact length (48 here, about that of PROMPTS).
-    toks = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
-    if cfg.family in ("ssm", "hybrid"):
-        prompt = torch.zeros((1, 48), dtype=torch.int32, device="cuda")
-        pre_kw = {}
-    else:
-        prompt = torch.zeros((1, 64), dtype=torch.int32, device="cuda")
-        pre_kw = {"true_lens": torch.tensor([60], dtype=torch.int32, device="cuda")}
-    tag = arch.split("-")[0] + ("_kvq" if kv_quant else "")
-    profile_path(cfg, m, tag, (
-        ("decode", "decode step (B=4)",
-         lambda: decode_step(cfg, params, toks, eng.cache), PROFILE_ITERS),
-        ("prefill", f"prefill (S={prompt.shape[1]})",
-         lambda: prefill_step(cfg, params, {"tokens": prompt}, max_len=512,
-                              **pre_kw), PROFILE_ITERS)))
-    check_unembed(cfg, params, gen, m)
+    m.update(prefills=eng.prefills, steps=eng.steps, launches=counts)
+    check_unembed(cfg, params, gen)
     if vlm:
         del eng
         free_card()
-        c = image_request(cfg, params, gen, m)
+        c = image_request(cfg, params, gen)
         counts = {k: counts[k] + c[k] for k in counts}
     return counts, m
 
 
-def image_request(cfg, params, gen, m):
+def image_request(cfg, params, gen):
     """llava's image request: 2,880 patch embeddings before a 32-token
     prompt through prefill_step (B 1, a ring of 4,096 slots) and 32 greedy
-    decode_steps, with the dense rule's launch counts; then a profile of
-    the image prefill and of a decode step on its ring."""
-    from repro_torch.kernels import ops
+    decode_steps, with the dense rule's launch counts."""
     from repro_torch.models.model import decode_step, prefill_step
     from repro_torch.serving.tokenizer import ByteTokenizer
 
@@ -1548,22 +1259,14 @@ def image_request(cfg, params, gen, m):
     batch = {"tokens": torch.tensor([ids], dtype=torch.int32, device="cuda"),
              "patches": torch.randn((1, P, cfg.d_model), generator=gen,
                                     device="cuda").to(cfg.torch_dtype)}
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cache, logits = prefill_step(cfg, params, batch, max_len=IMAGE_MAX_LEN)
-    nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-    first = int(nxt)
-    ttft = time.perf_counter() - t0
-    out, steps_s = [first], []
-    for _ in range(32):
-        ts = time.perf_counter()
-        logits, cache = decode_step(cfg, params, nxt, cache)
+    with counting_launches() as counts:
+        cache, logits = prefill_step(cfg, params, batch, max_len=IMAGE_MAX_LEN)
         nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-        out.append(int(nxt))
-        steps_s.append(time.perf_counter() - ts)
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+        out = [int(nxt)]
+        for _ in range(32):
+            logits, cache = decode_step(cfg, params, nxt, cache)
+            nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            out.append(int(nxt))
     expected = expected_launches(cfg, 1, 32)
     S = P + len(ids)
     assert int(cache["pos"][0]) == S + 32, cache["pos"]
@@ -1572,18 +1275,9 @@ def image_request(cfg, params, gen, m):
     assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
     assert all(0 <= t < cfg.vocab_size for t in out)
     log(f"  image request: {P} patches + {len(ids)} tokens (S {S}) in a ring "
-        f"of {IMAGE_MAX_LEN}, 32 decode steps: TTFT {1e3 * ttft:.2f} ms, decode "
-        f"step (median) {1e3 * statistics.median(steps_s):.3f} ms, "
-        f"{33 / wall:.1f} tok/s; launches={counts} expected={expected}")
+        f"of {IMAGE_MAX_LEN}, 32 decode steps; launches={counts} "
+        f"expected={expected}")
     assert counts == expected, "image request's launch counts differ"
-    m.update(image_ttft_ms=1e3 * ttft, image_decode_step_ms=1e3 * statistics.median(
-        steps_s), image_tok_s=33 / wall, image_launches=counts, image_s=S)
-    toks = nxt
-    profile_path(cfg, m, "llava", (
-        ("image_prefill", f"image prefill (S={S})",
-         lambda: prefill_step(cfg, params, batch, max_len=IMAGE_MAX_LEN), 3),
-        ("image_decode", f"decode step on the image ring (B=1, C={IMAGE_MAX_LEN})",
-         lambda: decode_step(cfg, params, toks, cache), PROFILE_ITERS)))
     return counts
 
 
@@ -1591,10 +1285,8 @@ def serve_encdec(arch):
     """seamless at full width: 4 requests of 256 frames and a 16-32 token
     decoder prompt each through ``launch.serve.generate_encdec``
     (prefill_step with a ring of 512, then 32 greedy decode_steps) with
-    exact launch counts; then profiles of a decode step and a prefill."""
-    from repro_torch.kernels import ops
+    exact launch counts, then the unembed."""
     from repro_torch.launch.serve import generate_encdec
-    from repro_torch.models.model import decode_step, prefill_step
     from repro_torch.serving.tokenizer import ByteTokenizer
 
     cfg, params, gen, m = load_path(arch)
@@ -1603,55 +1295,18 @@ def serve_encdec(arch):
                                                       (16, 21, 26, 32))]
     frames = torch.randn((4, ENC_FRAMES, cfg.d_model), generator=gen,
                          device="cuda").to(cfg.torch_dtype)
-    generate_encdec(cfg, params, ids, frames, 512, 2)       # warm-up
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = generate_encdec(cfg, params, ids, frames, 512, 32)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    with counting_launches() as counts:
+        out = generate_encdec(cfg, params, ids, frames, 512, 32)
+        torch.cuda.synchronize()
     expected = expected_launches(cfg, 1, 32)
     assert tuple(out.shape) == (4, 33)
     assert bool(((out >= 0) & (out < cfg.vocab_size)).all())
     log(f"  4 requests ({[len(i) for i in ids]} tokens, {ENC_FRAMES} frames "
-        f"each) + 32 greedy steps: {4 * 33} tokens in {wall:.3f} s = "
-        f"{4 * 33 / wall:.1f} tok/s; first row -> {tok.decode(out[0].tolist())!r}; "
+        f"each) + 32 greedy steps; first row -> {tok.decode(out[0].tolist())!r}; "
         f"launches={counts} expected={expected}")
     assert counts == expected, "launch counts differ from the main path's"
-
-    S = max(len(i) for i in ids)
-    batch = {"tokens": torch.tensor([i + [0] * (S - len(i)) for i in ids],
-                                    dtype=torch.int32, device="cuda"),
-             "frames": frames}
-    lens = torch.tensor([len(i) for i in ids], dtype=torch.int32, device="cuda")
-    with torch.no_grad():
-        torch.cuda.synchronize()
-        ts = time.perf_counter()
-        cache, _ = prefill_step(cfg, params, batch, max_len=512, true_lens=lens)
-        torch.cuda.synchronize()
-        ttft = time.perf_counter() - ts
-        toks = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
-        steps_s = []
-        for _ in range(16):
-            ts = time.perf_counter()
-            decode_step(cfg, params, toks, cache)
-            torch.cuda.synchronize()
-            steps_s.append(time.perf_counter() - ts)
-    m.update(tokens=4 * 33, wall_s=wall, tok_s=4 * 33 / wall,
-             mean_ttft_ms=1e3 * ttft, decode_step_ms=1e3 * statistics.median(steps_s),
-             decode_steps_timed=len(steps_s), prefills=1, steps=32,
-             launches=counts, kv_cache_bytes=cache_bytes(cache))
-    log(f"  prefill of the 4 requests {1e3 * ttft:.2f} ms, decode step (median "
-        f"of 16) {m['decode_step_ms']:.3f} ms; cache on the card (ring and "
-        f"cross K/V) {m['kv_cache_bytes'] / 2**20:.3f} MiB")
-    profile_path(cfg, m, "seamless", (
-        ("decode", "decode step (B=4)",
-         lambda: decode_step(cfg, params, toks, cache), PROFILE_ITERS),
-        ("prefill", f"prefill (B=4, {ENC_FRAMES} frames, S={S})",
-         lambda: prefill_step(cfg, params, batch, max_len=512, true_lens=lens),
-         PROFILE_ITERS)))
-    check_unembed(cfg, params, gen, m)
+    m.update(prefills=1, steps=32, launches=counts)
+    check_unembed(cfg, params, gen)
     return counts, m
 
 
@@ -1791,7 +1446,6 @@ def paged_phase():
     16, 17 and the sequences' own (multi-page) lengths. Launch counts are
     exact. A zero-length row (no caller makes one) is recorded, not held."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models.model import init_model
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.kv_cache import (PagedCacheConfig, PagedKVCache,
@@ -1803,99 +1457,98 @@ def paged_phase():
     pc = PagedKVCache(PagedCacheConfig(n_layers=cfg.n_layers, kv_dim=KV * hd,
                                        page_size=16, n_pages=256,
                                        dtype=cfg.dtype), device="cuda")
-    ops.reset_launch_counts()
-    eng = ServingEngine(cfg, params, max_batch=8, max_len=512, device="cuda")
-    reqs = [eng.submit(p, max_new_tokens=32) for p in PROMPTS]
-    eng.step()                         # admits all 8, then one decode step
-    ring_k, ring_v = eng.cache["k"], eng.cache["v"]    # (L, 8, 512, 256)
-    sids = []
-    for b, r in enumerate(reqs):
-        n, p = len(r.prompt_ids), int(eng.cache["pos"][b])
-        sid = pc.new_seq()
-        pc.write_prompt(sid, ring_k[:, b, :n], ring_v[:, b, :n])
-        for j in range(n, p):          # the decoded token(s)
-            pc.append(sid, ring_k[:, b, j], ring_v[:, b, j])
-        sids.append(sid)
-    for _ in range(3):
-        before = eng.cache["pos"].tolist()
-        eng.step()                     # slot pos % C gets the new token
-        for b, sid in enumerate(sids):
-            pc.append(sid, ring_k[:, b, before[b]], ring_v[:, b, before[b]])
-    k, v, lengths = pc.gather(sids)
-    pos = eng.cache["pos"]
-    assert torch.equal(lengths.cpu(), pos.cpu()), (lengths, pos)
-    for b in range(len(sids)):
-        n = int(lengths[b])
-        assert torch.equal(k[:, b, :n], ring_k[:, b, :n]), f"gather k row {b}"
-        assert torch.equal(v[:, b, :n], ring_v[:, b, :n]), f"gather v row {b}"
-    used = pc.cfg.n_pages - pc.alloc.n_free
-    log(f"  paged: 8 sequences of {lengths.tolist()} tokens in {used} pages "
-        f"(utilization {pc.utilization():.3f}); gather equals the engine's "
-        f"ring bit for bit")
+    with counting_launches() as counts:
+        eng = ServingEngine(cfg, params, max_batch=8, max_len=512, device="cuda")
+        reqs = [eng.submit(p, max_new_tokens=32) for p in PROMPTS]
+        eng.step()                         # admits all 8, then one decode step
+        ring_k, ring_v = eng.cache["k"], eng.cache["v"]    # (L, 8, 512, 256)
+        sids = []
+        for b, r in enumerate(reqs):
+            n, p = len(r.prompt_ids), int(eng.cache["pos"][b])
+            sid = pc.new_seq()
+            pc.write_prompt(sid, ring_k[:, b, :n], ring_v[:, b, :n])
+            for j in range(n, p):          # the decoded token(s)
+                pc.append(sid, ring_k[:, b, j], ring_v[:, b, j])
+            sids.append(sid)
+        for _ in range(3):
+            before = eng.cache["pos"].tolist()
+            eng.step()                     # slot pos % C gets the new token
+            for b, sid in enumerate(sids):
+                pc.append(sid, ring_k[:, b, before[b]], ring_v[:, b, before[b]])
+        k, v, lengths = pc.gather(sids)
+        pos = eng.cache["pos"]
+        assert torch.equal(lengths.cpu(), pos.cpu()), (lengths, pos)
+        for b in range(len(sids)):
+            n = int(lengths[b])
+            assert torch.equal(k[:, b, :n], ring_k[:, b, :n]), f"gather k row {b}"
+            assert torch.equal(v[:, b, :n], ring_v[:, b, :n]), f"gather v row {b}"
+        used = pc.cfg.n_pages - pc.alloc.n_free
+        log(f"  paged: 8 sequences of {lengths.tolist()} tokens in {used} pages "
+            f"(utilization {pc.utilization():.3f}); gather equals the engine's "
+            f"ring bit for bit")
 
-    # prefix sharing: the longest sequence, whose last page is partial
-    a = sids[int(torch.argmax(lengths))]
-    la = pc.seqs[a].length
-    full = la // 16
-    f = pc.fork_seq(a)
-    assert pc.seqs[f].pages[:full] == pc.seqs[a].pages[:full]
-    assert all(pc.alloc.refs[p] == 2 for p in pc.seqs[a].pages[:full])
-    assert pc.seqs[f].pages[full] != pc.seqs[a].pages[full]
-    kf, vf, _ = pc.gather([f])
-    ka, va, _ = pc.gather([a])
-    assert torch.equal(kf[:, :, :la], ka[:, :, :la])
-    assert torch.equal(vf[:, :, :la], va[:, :, :la])
-    tok = torch.randn((cfg.n_layers, KV * hd), device="cuda").to(cfg.torch_dtype)
-    pc.append(f, tok, tok)
-    ka2, _, _ = pc.gather([a])
-    assert torch.equal(ka2[:, :, :la], ka[:, :, :la]), "a fork's append moved its parent"
-    pc.free_seq(f)
-    assert pc.cfg.n_pages - pc.alloc.n_free == used
-    log(f"  paged: fork of a {la}-token sequence shares {full} pages and "
-        f"copies its tail; an append to the fork leaves the parent as it was; "
-        f"freeing the fork returns its page")
+        # prefix sharing: the longest sequence, whose last page is partial
+        a = sids[int(torch.argmax(lengths))]
+        la = pc.seqs[a].length
+        full = la // 16
+        f = pc.fork_seq(a)
+        assert pc.seqs[f].pages[:full] == pc.seqs[a].pages[:full]
+        assert all(pc.alloc.refs[p] == 2 for p in pc.seqs[a].pages[:full])
+        assert pc.seqs[f].pages[full] != pc.seqs[a].pages[full]
+        kf, vf, _ = pc.gather([f])
+        ka, va, _ = pc.gather([a])
+        assert torch.equal(kf[:, :, :la], ka[:, :, :la])
+        assert torch.equal(vf[:, :, :la], va[:, :, :la])
+        tok = torch.randn((cfg.n_layers, KV * hd), device="cuda").to(cfg.torch_dtype)
+        pc.append(f, tok, tok)
+        ka2, _, _ = pc.gather([a])
+        assert torch.equal(ka2[:, :, :la], ka[:, :, :la]), "a fork's append moved its parent"
+        pc.free_seq(f)
+        assert pc.cfg.n_pages - pc.alloc.n_free == used
+        log(f"  paged: fork of a {la}-token sequence shares {full} pages and "
+            f"copies its tail; an append to the fork leaves the parent as it was; "
+            f"freeing the fork returns its page")
 
-    # attention over pages: card (kernel) against CPU (plain), layer 0
-    errs, n_attn = [], 0
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    longest = int(torch.argmax(lengths))
-    extra = []
-    for n in (1, 15, 16, 17):          # prefixes of the longest sequence
-        sid = pc.new_seq()
-        pc.write_prompt(sid, ring_k[:, longest, :n], ring_v[:, longest, :n])
-        extra.append(sid)
-    for name, batch in (("lengths 1, 15, 16, 17", extra),
-                        ("the 8 sequences", sids)):
-        k, v, lens = pc.gather(batch)
-        q = randn(gen, len(batch), cfg.n_heads * hd, dtype=cfg.torch_dtype)
+        # attention over pages: card (kernel) against CPU (plain), layer 0
+        errs, n_attn = [], 0
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        longest = int(torch.argmax(lengths))
+        extra = []
+        for n in (1, 15, 16, 17):          # prefixes of the longest sequence
+            sid = pc.new_seq()
+            pc.write_prompt(sid, ring_k[:, longest, :n], ring_v[:, longest, :n])
+            extra.append(sid)
+        for name, batch in (("lengths 1, 15, 16, 17", extra),
+                            ("the 8 sequences", sids)):
+            k, v, lens = pc.gather(batch)
+            q = randn(gen, len(batch), cfg.n_heads * hd, dtype=cfg.torch_dtype)
+            out = paged_decode_attention(q, k[0], v[0], lens, KV, hd)
+            n_attn += 1
+            ref = paged_decode_attention(q.cpu(), k[0].cpu(), v[0].cpu(),
+                                         lens.cpu(), KV, hd)
+            err = (out.float().cpu() - ref.float()).abs().max().item()
+            ok = torch.allclose(out.float().cpu(), ref.float(), atol=TOL[cfg.torch_dtype],
+                                rtol=TOL[cfg.torch_dtype])
+            log(f"  paged_decode_attention {name} (lengths {lens.tolist()}): card "
+                f"vs plain max_abs_err={err:.3e} tol={TOL[cfg.torch_dtype]:g} "
+                f"{'ok' if ok else 'FAIL'}")
+            assert ok and out.dtype == q.dtype, f"paged attention {name} disagrees"
+            errs.append(err)
+        # a zero-length row: recorded only (JAX and the plain version return
+        # the mean of the gathered junk; the kernel's all-masked row differs)
+        z = pc.new_seq()
+        k, v, lens = pc.gather([extra[0], z])
+        q = randn(gen, 2, cfg.n_heads * hd, dtype=cfg.torch_dtype)
         out = paged_decode_attention(q, k[0], v[0], lens, KV, hd)
         n_attn += 1
-        ref = paged_decode_attention(q.cpu(), k[0].cpu(), v[0].cpu(),
-                                     lens.cpu(), KV, hd)
-        err = (out.float().cpu() - ref.float()).abs().max().item()
-        ok = torch.allclose(out.float().cpu(), ref.float(), atol=TOL[cfg.torch_dtype],
-                            rtol=TOL[cfg.torch_dtype])
-        log(f"  paged_decode_attention {name} (lengths {lens.tolist()}): card "
-            f"vs plain max_abs_err={err:.3e} tol={TOL[cfg.torch_dtype]:g} "
-            f"{'ok' if ok else 'FAIL'}")
-        assert ok and out.dtype == q.dtype, f"paged attention {name} disagrees"
-        errs.append(err)
-    # a zero-length row: recorded only (JAX and the plain version return
-    # the mean of the gathered junk; the kernel's all-masked row differs)
-    z = pc.new_seq()
-    k, v, lens = pc.gather([extra[0], z])
-    q = randn(gen, 2, cfg.n_heads * hd, dtype=cfg.torch_dtype)
-    out = paged_decode_attention(q, k[0], v[0], lens, KV, hd)
-    n_attn += 1
-    ref = paged_decode_attention(q.cpu(), k[0].cpu(), v[0].cpu(), lens.cpu(), KV, hd)
-    zero_row = dict(card_max_abs=out[1].float().abs().max().item(),
-                    plain_max_abs=ref[1].float().abs().max().item(),
-                    diff=(out[1].float().cpu() - ref[1].float()).abs().max().item())
-    log(f"  paged_decode_attention zero-length row (recorded, not held): card "
-        f"max |out| {zero_row['card_max_abs']:.4e}, plain max |out| "
-        f"{zero_row['plain_max_abs']:.4e}, diff {zero_row['diff']:.4e}")
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
+        ref = paged_decode_attention(q.cpu(), k[0].cpu(), v[0].cpu(), lens.cpu(), KV, hd)
+        zero_row = dict(card_max_abs=out[1].float().abs().max().item(),
+                        plain_max_abs=ref[1].float().abs().max().item(),
+                        diff=(out[1].float().cpu() - ref[1].float()).abs().max().item())
+        log(f"  paged_decode_attention zero-length row (recorded, not held): card "
+            f"max |out| {zero_row['card_max_abs']:.4e}, plain max |out| "
+            f"{zero_row['plain_max_abs']:.4e}, diff {zero_row['diff']:.4e}")
+        torch.cuda.synchronize()
     expected = expected_launches(cfg, eng.prefills, eng.steps)
     expected["decode_attention"] += n_attn
     log(f"  paged phase launches={counts} expected={expected}")
@@ -1930,13 +1583,12 @@ def assert_fits(what, nbytes):
 
 def decode_32k(cfg, params, gen, m):
     """decode_32k: B 128 over a ring of 32,768 slots, every slot valid (pos
-    past the ring's end), the ring drawn from ``gen`` layer by layer. 3
-    warm-up and 10 timed decode_steps (CUDA events), one profiled step;
-    then one layer's decode attention at this size against its plain
-    version, 16 rows at a time."""
+    past the ring's end), the ring drawn from ``gen`` layer by layer. One
+    decode_step, then one profiled (the decode kernel's device time and
+    its bound, the whole ring read once); then one layer's decode
+    attention at this size against its plain version, 16 rows at a
+    time."""
     from repro_torch.configs import DECODE_32K, input_specs
-    from repro_torch.kernels import ops
-    from repro_torch.launch.dryrun import analytic_hbm_bytes
     from repro_torch.models.model import decode_step
 
     shape = DECODE_32K
@@ -1953,47 +1605,24 @@ def decode_32k(cfg, params, gen, m):
                 layer.normal_(generator=gen)
     tokens = torch.randint(0, cfg.vocab_size, tuple(specs["tokens"].shape),
                            generator=gen, device="cuda", dtype=torch.int32)
-    torch.cuda.synchronize()
     step = lambda: decode_step(cfg, params, tokens, cache)  # noqa: E731
-    ops.reset_launch_counts()
-    with torch.no_grad():
-        for _ in range(3):
-            step()
-        ev = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(10)]
-        for a, b in ev:
-            a.record()
-            logits, _ = step()
-            b.record()
-        torch.cuda.synchronize()
-        per_call, busy, wall_us, _ = device_profile(
-            step, 1, "profile_dcache_decode_32k.txt", warmup=False)
-    counts = ops.launch_counts()
-    expected = expected_launches(cfg, 0, 14)
+    with counting_launches() as counts, torch.no_grad():
+        logits, _ = step()
+        per_call = device_profile(step, 1, warmup=False)[0]
+    expected = expected_launches(cfg, 0, 2)
     log(f"  decode_32k launches={counts} expected={expected}")
     assert counts == expected, "decode_32k launch counts differ"
     assert tuple(logits.shape) == (B, 1, cfg.padded_vocab)
     assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
-    step_ms = statistics.median(a.elapsed_time(b) for a, b in ev)
-    dev_ms = sum(per_call.values()) / 1e3
     dec_us = kernel_device_us(per_call, "decode_kernel") / L
-    hbm = analytic_hbm_bytes(cfg, shape, 1)
-    bound = 1e3 * hbm / PEAK_BYTES_S
     # the decode kernel's own bytes: the whole ring of a layer, q and out
     ring = 2 * B * S * cfg.n_kv_heads * cfg.head_dim_ * 2
-    m["decode_32k"] = dict(
-        B=B, C=S, step_ms=step_ms, device_ms=dev_ms, busy=busy,
-        host_wall_ms=wall_us / 1e3, decode_kernel_us=dec_us,
-        decode_kernel_bound_us=1e6 * ring / PEAK_BYTES_S,
-        analytic_hbm_bytes=hbm, bound_ms=bound, share_of_bound=bound / step_ms,
-        launches=counts)
-    log(f"  decode_32k (B {B}, ring {S}, bf16): step {step_ms:.3f} ms (CUDA "
-        f"events, median of 10 after 3 warm-up), device {dev_ms:.3f} ms "
-        f"(profiled step, busy {100 * busy:.1f}%), decode kernel "
-        f"{dec_us:.1f} us a launch (its ring read {ring / 1e9:.3f} GB: "
-        f"{1e6 * ring / PEAK_BYTES_S:.1f} us at 3.35 TB/s); bound "
-        f"analytic_hbm_bytes {hbm / 1e9:.3f} GB / 3.35 TB/s = {bound:.3f} ms, "
-        f"the step at {100 * bound / step_ms:.1f}% of it")
+    m["decode_32k"] = dict(B=B, C=S, decode_kernel_us=dec_us,
+                           decode_kernel_bound_us=1e6 * ring / PEAK_BYTES_S,
+                           launches=counts)
+    log(f"  decode_32k (B {B}, ring {S}, bf16): decode kernel {dec_us:.1f} us "
+        f"a launch in a profiled step (its ring read {ring / 1e9:.3f} GB: "
+        f"{1e6 * ring / PEAK_BYTES_S:.1f} us at 3.35 TB/s)")
     hq, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     k = cache["k"][0].view(B, S, kvh, hd).transpose(1, 2)
     v = cache["v"][0].view(B, S, kvh, hd).transpose(1, 2)
@@ -2049,17 +1678,15 @@ def hold_flash_head(q, k, v, bi, h, errs):
 
 def prefill_32k(cfg, params, gen, m):
     """prefill_32k: B 32 x S 32,768 through prefill_step (the batch cut
-    where its working set would not fit), timed with CUDA events and then
-    profiled once; flash's share of the device time. Then flash on one
-    layer's q (drawn), k and v (the prefilled cache's layer 0) against
-    SDPA's time on the same inputs, and one (row, head) of its output held
-    against the plain version of that head alone (a full plain version
-    would need 1.6 TB of scores)."""
+    where its working set would not fit). Then flash on one layer's q
+    (drawn), k and v (the prefilled cache's layer 0), timed against SDPA
+    on the same inputs and its bound, and one (row, head) of its output
+    held against the plain version of that head alone (a full plain
+    version would need 1.6 TB of scores)."""
     import torch.nn.functional as F
 
     from repro_torch.configs import PREFILL_32K, alloc_cache, input_specs
     from repro_torch.kernels import ops
-    from repro_torch.launch.dryrun import analytic_hbm_bytes
     from repro_torch.models.model import prefill_step
 
     shape = PREFILL_32K
@@ -2085,31 +1712,17 @@ def prefill_32k(cfg, params, gen, m):
     specs = input_specs(cfg, shape)
     tokens = torch.randint(0, cfg.vocab_size, (B, specs["tokens"].shape[1]),
                            generator=gen, device="cuda", dtype=torch.int32)
-    run = lambda: prefill_step(cfg, params, {"tokens": tokens})  # noqa: E731
-    ops.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    with torch.no_grad():
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        cache, logits = run()
-        b.record()
+    with counting_launches() as counts, torch.no_grad():
+        cache, logits = prefill_step(cfg, params, {"tokens": tokens})
         torch.cuda.synchronize()
-        prefill_ms = a.elapsed_time(b)
-        assert int(cache["pos"][0]) == S and tuple(cache["k"].shape) == (
-            L, B, S, cfg.n_kv_heads * cfg.head_dim_)
-        assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
-        k0, v0 = cache["k"][0].clone(), cache["v"][0].clone()
-        del cache, logits
-        per_call, busy, _, _ = device_profile(
-            run, 1, "profile_dcache_prefill_32k.txt", warmup=False)
-    peak = torch.cuda.max_memory_allocated()
-    counts = ops.launch_counts()
-    expected = expected_launches(cfg, 2, 0)
+    assert int(cache["pos"][0]) == S and tuple(cache["k"].shape) == (
+        L, B, S, cfg.n_kv_heads * cfg.head_dim_)
+    assert torch.isfinite(logits[..., :cfg.vocab_size]).all()
+    k0, v0 = cache["k"][0].clone(), cache["v"][0].clone()
+    del cache, logits
+    expected = expected_launches(cfg, 1, 0)
     log(f"  prefill_32k launches={counts} expected={expected}")
     assert counts == expected, "prefill_32k launch counts differ"
-    dev_ms = sum(per_call.values()) / 1e3
-    flash_ms = kernel_device_us(per_call, "flash_kernel") / 1e3
-    hbm = analytic_hbm_bytes(cfg, dataclasses.replace(shape, global_batch=B), 1)
     # one layer's flash at this size: kernel, SDPA (the library figure)
     hq, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     q = randn(gen, B, S, hq, hd, dtype=cfg.torch_dtype).transpose(1, 2)
@@ -2128,19 +1741,11 @@ def prefill_32k(cfg, params, gen, m):
     fl_bound, fl_by = bound_ms((2 * hq + 2 * kvh) * B * S * hd * es,
                                4 * pairs * hq * hd * B, cfg.torch_dtype)
     m["prefill_32k"] = dict(
-        B=B, S=S, batch_cut=cut, prefill_ms=prefill_ms, device_ms=dev_ms,
-        busy=busy, flash_device_ms=flash_ms, flash_share=flash_ms / dev_ms,
-        peak_bytes=peak, analytic_hbm_bytes=hbm,
-        bound_ms=1e3 * hbm / PEAK_BYTES_S, flash_layer_ms=fl_ms,
-        sdpa_layer_ms=sdpa_ms, flash_layer_bound_ms=fl_bound,
-        flash_layer_bound_by=fl_by, max_row_rel_err=row_rel,
-        last_rows_rel_err=late_rel, launches=counts)
-    log(f"  prefill_32k (B {B} x S {S}, bf16): prefill {prefill_ms:.1f} ms (CUDA "
-        f"events), device {dev_ms:.1f} ms (profiled, busy {100 * busy:.1f}%), "
-        f"flash {flash_ms:.1f} ms of it ({100 * flash_ms / dev_ms:.1f}%); peak "
-        f"memory {peak / 2**30:.2f} GiB; analytic_hbm_bytes {hbm / 1e9:.2f} GB "
-        f"= {1e3 * hbm / PEAK_BYTES_S:.2f} ms at 3.35 TB/s; one layer's flash "
-        f"{fl_ms:.2f} ms, SDPA {sdpa_ms:.2f} ms, bound {fl_bound:.2f} ms ({fl_by})")
+        B=B, S=S, batch_cut=cut, flash_layer_ms=fl_ms, sdpa_layer_ms=sdpa_ms,
+        flash_layer_bound_ms=fl_bound, flash_layer_bound_by=fl_by,
+        max_row_rel_err=row_rel, last_rows_rel_err=late_rel, launches=counts)
+    log(f"  prefill_32k (B {B} x S {S}, bf16): one layer's flash {fl_ms:.2f} ms, "
+        f"SDPA {sdpa_ms:.2f} ms, bound {fl_bound:.2f} ms ({fl_by})")
     return counts
 
 
@@ -2156,16 +1761,11 @@ def train_4k(cfg, params, m):
     micro-batch of accum 32 (8 x 4,096: its forward and backward, from the
     loop's own state: weights, moments, batch): the part above what it
     starts from grows with the micro-batch, which predicts the smallest N
-    dividing 256 whose peak stays under 70 GiB. That N takes one warm-up
-    step and two timed ones (host clock around each TrainLoop step, which
-    ends on the loss; each step's peak memory). Then one micro-batch of
-    that N under the profiler: its device time, busy share and launch API
-    calls (a whole step's are N of them and AdamW's). Every loss and
+    dividing 256 whose peak stays under 70 GiB. That N takes three steps
+    (each step's peak memory beside the prediction). Every loss and
     grad_norm finite, the first loss within 0.5 of ln(vocab) (random
     weights), and no kernel launched: training takes the eager path."""
     from repro_torch.configs import TRAIN_4K, input_specs
-    from repro_torch.distributed import HeartbeatMonitor
-    from repro_torch.kernels import ops
     from repro_torch.training import AdamWConfig, TrainLoop
     from repro_torch.training.train_loop import loss_and_grads
 
@@ -2179,13 +1779,10 @@ def train_4k(cfg, params, m):
     assert ({k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
             == {k: (tuple(v.shape), v.dtype) for k, v in specs.items()})
     opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10)
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    flops = train_flops(cfg, n_params, B, S)
-    before = ops.launch_counts()
 
     def loop_for(n):
         return TrainLoop(cfg, opt, params, itertools.repeat(batch),
-                         accum_steps=n, monitor=HeartbeatMonitor())
+                         accum_steps=n)
 
     def peak_of(fn):
         """(fn's result, the memory held before it, its peak)."""
@@ -2196,62 +1793,44 @@ def train_4k(cfg, params, m):
         torch.cuda.synchronize()
         return out, base, torch.cuda.max_memory_allocated()
 
-    loop = loop_for(TRAIN4K_FIRST_ACCUM)
-    rows0 = B // TRAIN4K_FIRST_ACCUM
-    (grads, m0), base, peak0 = peak_of(lambda: loss_and_grads(
-        cfg, loop.params, {k: v[:rows0] for k, v in batch.items()}))
-    loss0 = float(m0["loss"])
-    del grads
-    per_row = (peak0 - base) / rows0
-    n = next(n for n in (1, 2, 4, 8, 16, 32, 64, 128, 256)
-             if base + per_row * (B // n) < TRAIN4K_PEAK_GIB * 2**30)
-    predicted = base + per_row * (B // n)
-    log(f"  train_4k: one micro-batch of accum {TRAIN4K_FIRST_ACCUM} ({rows0} "
-        f"x {S}) peaks at {peak0 / 2**30:.3f} GiB over {base / 2**30:.3f} GiB "
-        f"held before it (weights, moments, batch); predicted peak at accum "
-        f"{n}: {predicted / 2**30:.2f} GiB (the smallest accum under "
-        f"{TRAIN4K_PEAK_GIB:g} GiB)")
-    del loop
-    loop = loop_for(n)
-    steps = [peak_of(lambda: loop.run(loop.step_idx + 1)) for _ in range(3)]
-    steps_ms = [1e3 * t for t in loop.monitor.step_times]
-    rows = B // n
-    per_call, busy, wall_us, api = device_profile(
-        lambda: loss_and_grads(cfg, loop.params,
-                               {k: v[:rows] for k, v in batch.items()}),
-        1, "profile_dcache_train_4k_micro.txt", warmup=False)
+    with counting_launches() as counts:
+        loop = loop_for(TRAIN4K_FIRST_ACCUM)
+        rows0 = B // TRAIN4K_FIRST_ACCUM
+        (grads, m0), base, peak0 = peak_of(lambda: loss_and_grads(
+            cfg, loop.params, {k: v[:rows0] for k, v in batch.items()}))
+        loss0 = float(m0["loss"])
+        del grads
+        per_row = (peak0 - base) / rows0
+        n = next(n for n in (1, 2, 4, 8, 16, 32, 64, 128, 256)
+                 if base + per_row * (B // n) < TRAIN4K_PEAK_GIB * 2**30)
+        predicted = base + per_row * (B // n)
+        log(f"  train_4k: one micro-batch of accum {TRAIN4K_FIRST_ACCUM} ({rows0} "
+            f"x {S}) peaks at {peak0 / 2**30:.3f} GiB over {base / 2**30:.3f} GiB "
+            f"held before it (weights, moments, batch); predicted peak at accum "
+            f"{n}: {predicted / 2**30:.2f} GiB (the smallest accum under "
+            f"{TRAIN4K_PEAK_GIB:g} GiB)")
+        del loop
+        loop = loop_for(n)
+        steps = [peak_of(lambda: loop.run(loop.step_idx + 1)) for _ in range(3)]
     losses = [loss0] + loop.history
     gnorms = [x["grad_norm"] for x, _, _ in steps]
     peak = max(p for _, _, p in steps)
-    assert ops.launch_counts() == before, "train_4k launched a hand-written kernel"
+    assert not any(counts.values()), "train_4k launched a hand-written kernel"
     assert all(map(math.isfinite, losses + gnorms)), "a loss or grad_norm is not finite"
     ln_v = math.log(cfg.vocab_size)
     assert abs(loss0 - ln_v) <= 0.5, f"first loss {loss0:.3f}, ln(vocab) {ln_v:.3f}"
-    step_ms = statistics.median(steps_ms[1:])
-    tok_s = B * S / (step_ms / 1e3)
-    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
-    dev_ms = sum(per_call.values()) / 1e3
     m["train_4k"] = dict(
-        B=B, S=S, accum=n, micro_batch=rows, first_accum=TRAIN4K_FIRST_ACCUM,
+        B=B, S=S, accum=n, micro_batch=B // n, first_accum=TRAIN4K_FIRST_ACCUM,
         first_micro_peak_bytes=peak0, base_bytes=base,
         predicted_peak_bytes=predicted, peak_bytes=peak,
-        step_peak_bytes=[p for _, _, p in steps], step_ms_all=steps_ms,
-        step_ms=step_ms, tok_s=tok_s, micro_busy=busy, micro_device_ms=dev_ms,
-        micro_wall_ms=wall_us / 1e3, micro_launch_api_calls=api, flops=flops,
-        mfu=mfu, losses=losses, grad_norms=gnorms)
-    top = sorted(per_call.items(), key=lambda kv: -kv[1])[:6]
-    log(f"  train_4k at accum {n} ({rows} x {S} micro-batches, bf16, remat "
-        f"{cfg.remat}): steps {', '.join(f'{t:.1f}' for t in steps_ms)} ms "
-        f"(warm-up, then two timed); {tok_s:.0f} tok/s; peak "
-        f"{peak / 2**30:.3f} GiB (predicted {predicted / 2**30:.2f}); model "
-        f"FLOPs {flops / 1e15:.3f} PFLOP/step, share of the bf16 dense peak "
-        f"(989 TFLOP/s) {100 * mfu:.2f}%; losses "
+        step_peak_bytes=[p for _, _, p in steps], losses=losses,
+        grad_norms=gnorms)
+    log(f"  train_4k at accum {n} ({B // n} x {S} micro-batches, bf16, remat "
+        f"{cfg.remat}): 3 steps, peak {peak / 2**30:.3f} GiB (predicted "
+        f"{predicted / 2**30:.2f}); losses "
         + ", ".join(f"{x:.4f}" for x in losses) + f" (ln(vocab) {ln_v:.4f}); "
         f"grad_norms " + ", ".join(f"{x:.4f}" for x in gnorms)
-        + f"; no kernel launched; one {rows} x {S} micro-batch profiled: host "
-        f"wall {wall_us / 1e3:.1f} ms, device {dev_ms:.1f} ms, busy "
-        f"{100 * busy:.1f}%, launch API calls {api:.0f}; top: "
-        + "; ".join(f"{k[:48]} {t / 1e3:.1f} ms" for k, t in top))
+        + "; no kernel launched")
 
 
 def assigned_shapes():
@@ -2273,9 +1852,7 @@ def assigned_shapes():
     free_card()
     c = prefill_32k(cfg, params, gen, m)
     free_card()
-    t0 = time.perf_counter()
     train_4k(cfg, params, m)
-    m["train_4k"]["seconds"] = time.perf_counter() - t0
     return {k: counts[k] + c[k] for k in counts}, m
 
 
@@ -2283,27 +1860,18 @@ def assigned_shapes():
 # the serving bench's twin on the card
 # ---------------------------------------------------------------------------
 
-BENCH_RUNS = 5
-
-
 def bench_phase():
     """repro_torch.launch.serving_bench's run at its reference configuration
     (reduced dcache-agent-150m, head dim 16, the seeded weights of
     ``bench_serving``), its rows and its launch counts against the engine's
-    own prefills and steps; phase 3's full-width dcache workload BENCH_RUNS
-    times in this process after a warm-up (the spread of one card);
-    bench_kernels' row."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
+    own prefills and steps; bench_kernels' row."""
     from repro_torch.launch import serving_bench
     from repro_torch.models.model import init_model
-    from repro_torch.serving import ServingEngine
 
     cfg = serving_bench.bench_config()
     params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    ops.reset_launch_counts()
-    eng, reqs, seconds = serving_bench.run_bench(cfg, params, 6, 8, "cuda")
-    counts = ops.launch_counts()
+    with counting_launches() as counts:
+        eng, reqs, seconds = serving_bench.run_bench(cfg, params, 6, 8, "cuda")
     rows = serving_bench.serving_rows(eng, seconds)
     expected = expected_launches(cfg, eng.prefills, eng.steps)
     log("  " + " | ".join(rows) + f"; prefills={eng.prefills} "
@@ -2311,22 +1879,9 @@ def bench_phase():
     assert all(r.done for r in reqs), "unfinished bench requests"
     assert counts == expected, "bench launch counts differ"
     assert rows[1] == "serving,requests,6"
-
-    cfg = get_config("dcache-agent-150m")
-    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    ServingEngine(cfg, params, max_batch=4, max_len=512,
-                  device="cuda").generate_text(PROMPTS[0], max_new_tokens=4)
-    runs = []
-    for _ in range(BENCH_RUNS):
-        eng = ServingEngine(cfg, params, max_batch=4, max_len=512, device="cuda")
-        runs.append(serve_workload(eng))
     krow = serving_bench.bench_kernels()
     log("  " + krow[0])
-    m = dict(rows=rows, kernel_row=krow[0], runs=runs, launches=counts)
-    for key in ("tok_s", "mean_ttft_ms", "decode_step_ms"):
-        vals = [r[key] for r in runs]
-        m[key] = dict(median=statistics.median(vals), min=min(vals), max=max(vals))
-    return counts, m
+    return counts, dict(rows=rows, kernel_row=krow[0], launches=counts)
 
 
 # ---------------------------------------------------------------------------
@@ -2343,10 +1898,10 @@ TABLE_DIGESTS = {"table1": (40, "4a16fa741c2ec0e3"),
 
 class DecisionLog:
     """The controller's decision model with each call recorded: the
-    prompt's bytes, the prompt bytes the engine kept (``submit`` keeps the
-    last ``max_len // 2`` tokens), the wall ms with the card synchronized
-    before and after, and the completion. Without an engine (a SimLLM
-    decision plane) it records the prompt's bytes, ms and completion."""
+    prompt, its bytes, the prompt bytes the engine kept (``submit`` keeps
+    the last ``max_len // 2`` tokens) and the completion. Without an engine
+    (a SimLLM decision plane) it records the prompt, its bytes and the
+    completion."""
 
     def __init__(self, llm, engine=None):
         self.llm, self.engine, self.calls = llm, engine, []
@@ -2354,17 +1909,10 @@ class DecisionLog:
     def complete(self, prompt):
         eng = self.engine
         kept = eng.tok.encode(prompt)[-(eng.max_len // 2):] if eng else []
-        sync = eng is not None and eng.device.type == "cuda"
-        if sync:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
         out = self.llm.complete(prompt)
-        if sync:
-            torch.cuda.synchronize()
         self.calls.append(dict(
             prompt=prompt, prompt_bytes=len(prompt.encode()),
-            kept_bytes=sum(i < 256 for i in kept),
-            ms=1e3 * (time.perf_counter() - t0), completion=out))
+            kept_bytes=sum(i < 256 for i in kept), completion=out))
         return out
 
 
@@ -2422,37 +1970,28 @@ def agent_phase():
     digests."""
     from repro_torch.agent import TorchLLM
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.launch import tables
     from repro_torch.models.model import init_model
     from repro_torch.serving import ServingEngine
 
     cfg = get_config("dcache-agent-150m")
     params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    ServingEngine(cfg, params, max_batch=4, max_len=512,
-                  device="cuda").generate_text(PROMPTS[0], max_new_tokens=4)
-    torch.cuda.synchronize()
     eng = ServingEngine(cfg, params, max_batch=4, max_len=512, device="cuda")
     llm = DecisionLog(TorchLLM(eng, max_new_tokens=AGENT_NEW_TOKENS), eng)
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    off = run_agent(llm, False, AGENT_TASKS)
-    assert not llm.calls, "the run without the cache asked the model"
-    on = run_agent(llm, True, AGENT_TASKS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    with counting_launches() as counts:
+        off = run_agent(llm, False, AGENT_TASKS)
+        assert not llm.calls, "the run without the cache asked the model"
+        on = run_agent(llm, True, AGENT_TASKS)
+        torch.cuda.synchronize()
     expected = expected_launches(cfg, eng.prefills, eng.steps)
     calls = llm.calls
     _, rep_off, _, _ = off
     traces, rep_on, ctrl, cache = on
     st = cache.stats
-    ms = [c["ms"] for c in calls]
     m = dict(decisions=len(calls), prefills=eng.prefills, steps=eng.steps,
              prompt_bytes=[c["prompt_bytes"] for c in calls],
              kept_bytes=[c["kept_bytes"] for c in calls],
-             decision_ms=ms, decision_ms_median=statistics.median(ms),
-             decision_ms_max=max(ms), parse_fallbacks=ctrl.parse_fallbacks,
+             parse_fallbacks=ctrl.parse_fallbacks,
              degraded=ctrl.degraded, graded=st.llm_total_decisions,
              graded_correct=st.llm_correct_decisions, hits=st.hits,
              misses=st.misses, evictions=st.evictions,
@@ -2460,12 +1999,11 @@ def agent_phase():
              sim_ratio=rep_off.avg_time_s / rep_on.avg_time_s,
              success_off=rep_off.success_rate, success_on=rep_on.success_rate,
              completions=[c["completion"] for c in calls][:4],
-             launches=counts, wall_s=wall)
+             launches=counts)
     log(f"  {len(calls)} decisions made by the model over {AGENT_TASKS} tasks "
         f"(prefills={eng.prefills} decode_steps={eng.steps}); prompt bytes "
         f"{m['prompt_bytes']}; kept by the engine {m['kept_bytes']}")
-    log(f"  decision wall ms (synchronized): median {m['decision_ms_median']:.2f} "
-        f"max {m['decision_ms_max']:.2f}; parse_fallbacks={ctrl.parse_fallbacks} "
+    log(f"  parse_fallbacks={ctrl.parse_fallbacks} "
         f"degraded={ctrl.degraded} graded={st.llm_total_decisions} "
         f"(correct {st.llm_correct_decisions}); cache hits={st.hits} "
         f"misses={st.misses} evictions={st.evictions}; first completions "
@@ -2478,13 +2016,11 @@ def agent_phase():
     assert all(math.isfinite(r.avg_time_s) and r.avg_time_s > 0
                for r in (rep_off, rep_on))
     assert counts == expected, "agent phase launch counts differ"
-    t1 = time.perf_counter()
     for name, (n, digest) in TABLE_DIGESTS.items():
         rows = getattr(tables, name)(n=n)
         got = hashlib.sha256(repr(rows).encode()).hexdigest()[:16]
         log(f"  {name}(n={n}) digest {got} (locked {digest}); {rows[-1]}")
         assert got == digest, f"{name} digest differs on the card's host"
-    m["tables_s"] = time.perf_counter() - t1
     return counts, m
 
 
@@ -2495,7 +2031,6 @@ def agent_cpu_vs_card():
     run's launch counts against its engine's prefills and steps."""
     from repro_torch.agent import TorchLLM
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models.model import init_model
     from repro_torch.serving import ServingEngine
 
@@ -2506,9 +2041,9 @@ def agent_cpu_vs_card():
     for device, params in (("cpu", tree_to(gpu_params, "cpu")), ("cuda", gpu_params)):
         eng = ServingEngine(cfg, params, max_batch=4, max_len=128, device=device)
         llm = DecisionLog(TorchLLM(eng, max_new_tokens=8), eng)
-        ops.reset_launch_counts()
-        traces = run_agent(llm, True, 2)[0]
-        out[device] = (llm.calls, traces, ops.launch_counts(),
+        with counting_launches() as counts:
+            traces = run_agent(llm, True, 2)[0]
+        out[device] = (llm.calls, traces, counts,
                        expected_launches(cfg, eng.prefills, eng.steps))
     (c_calls, c_traces, _, _), (g_calls, g_traces, counts, expected) = out["cpu"], out["cuda"]
     assert counts == expected, "agent cpu vs card launch counts differ"
@@ -2599,35 +2134,23 @@ def concurrent_phase():
     from repro_torch.agent import TorchLLM
     from repro_torch.configs import get_config
     from repro_torch.core.coherence import MutationPlan
-    from repro_torch.kernels import ops
     from repro_torch.launch import tables
     from repro_torch.models.model import init_model
     from repro_torch.serving import ServingEngine
 
     cfg = get_config("dcache-agent-150m")
     params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-    ServingEngine(cfg, params, max_batch=4, max_len=512,
-                  device="cuda").generate_text(PROMPTS[0], max_new_tokens=4)
-    torch.cuda.synchronize()
     eng = ServingEngine(cfg, params, max_batch=4, max_len=512, device="cuda")
     llm = DecisionLog(TorchLLM(eng, max_new_tokens=AGENT_NEW_TOKENS), eng)
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    base = episode_summary(*run_concurrent(None, CONC_SESSIONS, CONC_TASKS))[0]
-    t1 = time.perf_counter()
-    ceng, cres, logs = run_concurrent(llm, CONC_SESSIONS, CONC_TASKS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    counts = ops.launch_counts()
+    with counting_launches() as counts:
+        base = episode_summary(*run_concurrent(None, CONC_SESSIONS, CONC_TASKS))[0]
+        ceng, cres, logs = run_concurrent(llm, CONC_SESSIONS, CONC_TASKS)
+        torch.cuda.synchronize()
     expected = expected_launches(cfg, eng.prefills, eng.steps)
     served, calls = episode_summary(ceng, cres, logs)
-    ms = [c["ms"] for c in calls]
-    m = dict(served=served, simllm=base, simllm_wall_s=t1 - t0, served_wall_s=wall,
-             prefills=eng.prefills, steps=eng.steps,
+    m = dict(served=served, simllm=base, prefills=eng.prefills, steps=eng.steps,
              prompt_bytes=[c["prompt_bytes"] for c in calls],
              kept_bytes=[c["kept_bytes"] for c in calls],
-             decision_ms=ms, decision_ms_median=statistics.median(ms),
-             decision_ms_max=max(ms),
              completions=[c["completion"] for c in calls][:4], launches=counts)
     log(f"  SimLLM planes: decisions {base['decisions']}; "
         + " ".join(f"{k}={base[k]}" for k in CONC_METRICS)
@@ -2637,8 +2160,7 @@ def concurrent_phase():
         f"tasks (prefills={eng.prefills} decode_steps={eng.steps}); prompt bytes "
         f"{min(m['prompt_bytes'])}-{max(m['prompt_bytes'])}, kept by the engine "
         f"{min(m['kept_bytes'])}-{max(m['kept_bytes'])}")
-    log(f"  served planes: decision wall ms (synchronized) median "
-        f"{m['decision_ms_median']:.2f} max {m['decision_ms_max']:.2f}; "
+    log("  served planes: "
         + " ".join(f"{k}={served[k]}" for k in CONC_METRICS)
         + f"; parse_fallbacks {served['parse_fallbacks']} degraded "
         f"{served['degraded']}; first completions {m['completions']!r}")
@@ -2652,7 +2174,6 @@ def concurrent_phase():
         assert not any(run["degraded"].values())
         assert all(math.isfinite(run[k]) for k in CONC_METRICS)
     assert counts == expected, "concurrent phase launch counts differ"
-    t2 = time.perf_counter()
     m["digests"] = {}
     for name, kw, digest in ENGINE_DIGESTS:
         kw = dict(kw)
@@ -2662,7 +2183,6 @@ def concurrent_phase():
         log(f"  {name}({kw}) digest {got} (locked {digest})")
         assert got == digest, f"{name} digest differs on the card's host"
         m["digests"][name] = got
-    m["tables_s"] = time.perf_counter() - t2
     return counts, m
 
 
@@ -2676,7 +2196,6 @@ def concurrent_cpu_vs_card():
     engine's prefills and steps."""
     from repro_torch.agent import TorchLLM
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models.model import init_model
     from repro_torch.serving import ServingEngine
 
@@ -2689,10 +2208,10 @@ def concurrent_cpu_vs_card():
         for device, params in (("cpu", tree_to(gpu_params, "cpu")), ("cuda", gpu_params)):
             eng = ServingEngine(cfg, params, max_batch=4, max_len=128, device=device)
             llm = DecisionLog(TorchLLM(eng, max_new_tokens=8), eng)
-            ops.reset_launch_counts()
-            _, res, _ = run_concurrent(llm, n_sessions, n_tasks, n_pods=2,
-                                       capacity_per_pod=2)
-            runs[device] = (llm.calls, res.metrics.row(), ops.launch_counts(),
+            with counting_launches() as counts:
+                _, res, _ = run_concurrent(llm, n_sessions, n_tasks, n_pods=2,
+                                           capacity_per_pod=2)
+            runs[device] = (llm.calls, res.metrics.row(), counts,
                             expected_launches(cfg, eng.prefills, eng.steps))
         (c_calls, c_row, _, _), (g_calls, g_row, counts, expected) = runs["cpu"], runs["cuda"]
         assert counts == expected, "concurrent cpu vs card launch counts differ"
@@ -2721,93 +2240,65 @@ def batch_to(batch, device):
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def train_flops(cfg, n_params, B, S):
-    """Products of one training step: 6 N per token, plus the attention's
-    QK^T and PV over the full S x S the eager route computes (4 B Hq S^2 hd
-    a layer forward), run 4 times: forward, backward (2x) and the block
-    remat's recompute."""
-    attn = 4 * B * cfg.n_heads * S * S * cfg.head_dim_ * cfg.n_layers
-    return 6 * n_params * B * S + 4 * attn
-
-
 def train_full_width():
     """Full-width dcache-agent-150m in bf16 through the twin's own train()
     (TrainLoop over a Prefetcher of TokenStream(batch 8, seq 512, seed 0),
     AdamW lr 1e-3, 3 warmup steps, 30 steps): every loss and grad_norm
     finite, the mean of the last 5 losses at least 0.5 under the first 5's,
-    no kernel launched. The trained params (bf16, no grad) then serve the
-    twin's 8 prompts through its serve() with exact launch counts and one
-    TorchLLM decision. Then 3 more steps under the profiler. Before it the
-    same 30 steps with remat="dots" from the same seeds: its median step
-    and peak memory beside block's, every loss within 1e-3 relative."""
+    no kernel launched. Before it the same 30 steps with remat="dots" from
+    the same seeds: every loss within 1e-3 relative of block's. The trained
+    params (bf16, no grad) then serve the twin's 8 prompts through its
+    serve() with exact launch counts and one TorchLLM decision."""
     from repro_torch.configs import get_config
-    from repro_torch.distributed import HeartbeatMonitor
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve_llm
     from repro_torch.models.model import init_model
     from repro_torch.training import AdamWConfig, Prefetcher, TokenStream
 
     def run(remat):
         """TRAIN_STEPS steps of the twin's train() under ``remat``, from the
-        same weights and data seeds."""
+        same weights and data seeds, launching no kernel."""
         cfg = dataclasses.replace(get_config("dcache-agent-150m"), remat=remat)
         params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
                             "cuda")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        mon = HeartbeatMonitor()
         pf = Prefetcher(TokenStream(cfg, batch=TRAIN_B, seq=TRAIN_S, seed=0))
-        t0 = time.perf_counter()
         try:
-            loop, metrics = serve_llm.train(
-                cfg, params, pf, TRAIN_STEPS,
-                AdamWConfig(lr=1e-3, warmup_steps=3, total_steps=TRAIN_STEPS),
-                monitor=mon)
+            with counting_launches() as counts:
+                loop, metrics = serve_llm.train(
+                    cfg, params, pf, TRAIN_STEPS,
+                    AdamWConfig(lr=1e-3, warmup_steps=3, total_steps=TRAIN_STEPS))
         finally:
             pf.close()
-        return (cfg, loop, metrics, mon, time.perf_counter() - t0,
-                torch.cuda.max_memory_allocated())
+        assert not any(counts.values()), "training launched a hand-written kernel"
+        return cfg, loop, metrics
 
-    before = ops.launch_counts()
     # remat="dots" (the products' outputs kept) beside the default "block"
-    dcfg, dloop, dmetrics, dmon, _, dpeak = run("dots")
-    assert ops.launch_counts() == before, "training launched a hand-written kernel"
+    dcfg, dloop, dmetrics = run("dots")
     del dloop
     free_card()
-    cfg, loop, metrics, mon, wall, peak = run("block")
+    cfg, loop, metrics = run("block")
     assert cfg.remat == "block" and dcfg.remat == "dots"
-    n_params = sum(t.numel() for t in tree_leaves(loop.params))
-    dots = dict(losses=[m["loss"] for m in dmetrics],
-                step_ms=1e3 * statistics.median(dmon.step_times), peak_bytes=dpeak)
     losses = [m["loss"] for m in metrics]
+    dots = dict(losses=[m["loss"] for m in dmetrics])
     dots["max_loss_rel"] = max(abs(a - b) / abs(b)
                                for a, b in zip(dots["losses"], losses))
     log(f"  remat dots vs block, {TRAIN_STEPS} steps at {TRAIN_B}x{TRAIN_S}: "
-        f"median step {dots['step_ms']:.2f} vs "
-        f"{1e3 * statistics.median(mon.step_times):.2f} ms, peak memory "
-        f"{dpeak / 2**30:.3f} vs {peak / 2**30:.3f} GiB; largest loss "
-        f"difference {dots['max_loss_rel']:.2e} relative (<= 1e-3)")
+        f"largest loss difference {dots['max_loss_rel']:.2e} relative (<= 1e-3)")
     assert dots["max_loss_rel"] <= 1e-3, "dots and block losses differ"
     gnorms = [m["grad_norm"] for m in metrics]
     assert all(map(math.isfinite, losses + gnorms)), "a loss or grad_norm is not finite"
     first, last = statistics.fmean(losses[:5]), statistics.fmean(losses[-5:])
     assert last <= first - 0.5, f"loss fell from {first:.3f} to {last:.3f} only"
-    assert ops.launch_counts() == before, "training launched a hand-written kernel"
     assert all(t.dtype == torch.bfloat16 and not t.requires_grad
                for t in tree_leaves(loop.params)), "trained params are not plain bf16"
-    step_ms = 1e3 * statistics.median(mon.step_times)
-    tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
-    log(f"  trained {TRAIN_STEPS} steps at {TRAIN_B}x{TRAIN_S} in {wall:.2f} s: "
-        f"loss {losses[0]:.3f} -> {losses[-1]:.3f} (mean of first 5 {first:.3f}, "
+    log(f"  trained {TRAIN_STEPS} steps at {TRAIN_B}x{TRAIN_S}: loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f} (mean of first 5 {first:.3f}, "
         f"last 5 {last:.3f}); grad_norm {gnorms[0]:.3f} -> {gnorms[-1]:.3f}; "
-        f"median step {step_ms:.2f} ms = {tok_s:.0f} tok/s; peak memory "
-        f"{peak / 2**30:.3f} GiB; kernel launches in training: 0")
+        f"kernel launches in training: 0")
 
-    ops.reset_launch_counts()
-    eng, reqs = serve_llm.serve(cfg, loop.params, serve_llm.PROMPTS, device="cuda")
-    text = serve_llm.decide(eng)
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    with counting_launches() as counts:
+        eng, reqs = serve_llm.serve(cfg, loop.params, serve_llm.PROMPTS, device="cuda")
+        text = serve_llm.decide(eng)
+        torch.cuda.synchronize()
     expected = expected_launches(cfg, eng.prefills, eng.steps)
     assert all(r.done for r in reqs) and len(reqs) == 8, "unfinished requests"
     assert isinstance(text, str), "TorchLLM returned no text"
@@ -2815,36 +2306,11 @@ def train_full_width():
         f"decode_steps={eng.steps} launches={counts} expected={expected}; "
         f"TorchLLM -> {text!r}")
     assert counts == expected, "launch counts differ from the main path's"
-
-    # 3 more steps under the profiler (after serving: the served weights
-    # are the 30-step ones)
-    batch = batch_to(TokenStream(cfg, batch=TRAIN_B, seq=TRAIN_S,
-                                 seed=1).next_batch(), "cuda")
-    state = {"p": loop.params, "o": loop.opt_state}
-
-    def one_step():
-        state["p"], state["o"], _ = loop.step_fn(state["p"], state["o"], batch)
-
-    per_call, busy, wall_us, api = device_profile(one_step, 3,
-                                                  "profile_dcache_train_step.txt")
-    dev_us = sum(per_call.values())
-    flops = train_flops(cfg, n_params, TRAIN_B, TRAIN_S)
-    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
-    top = sorted(per_call.items(), key=lambda kv: -kv[1])[:8]
-    log(f"  profile train step: host wall {wall_us / 1e3:.2f} ms/step, device "
-        f"{dev_us / 1e3:.2f} ms/step, device busy {100 * busy:.1f}%, launch API "
-        f"calls/step {api:.0f}; model FLOPs {flops / 1e12:.3f} TFLOP/step, "
-        f"share of the bf16 dense peak (989 TFLOP/s, H100 SXM5) "
-        f"{100 * mfu:.2f}%; top: "
-        + "; ".join(f"{k[:48]} {t / 1e3:.2f} ms" for k, t in top))
     return counts, dict(
-        steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S, params=n_params,
+        steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+        params=sum(t.numel() for t in tree_leaves(loop.params)),
         losses=losses, grad_norms=gnorms, first5=first, last5=last,
-        step_ms=step_ms, step_ms_all=[1e3 * t for t in mon.step_times],
-        tok_s=tok_s, peak_bytes=peak, wall_s=wall, profile_wall_ms=wall_us / 1e3,
-        profile_device_ms=dev_us / 1e3, busy=busy, launch_api_calls=api,
-        flops=flops, mfu=mfu, peak_flops=PEAK_FLOPS[torch.bfloat16],
-        top_us=dict(top), serve_launches=counts, decision=text, dots=dots)
+        serve_launches=counts, decision=text, dots=dots)
 
 
 def smoke_launchers():
@@ -2853,7 +2319,6 @@ def smoke_launchers():
     launch.serve_llm's on the card, each held to the launch counts its
     returned engine's prefills and steps imply (serve_llm's training
     launches none)."""
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve, serve_llm
 
     counts, m = {}, {}
@@ -2861,17 +2326,13 @@ def smoke_launchers():
                            ("launch.serve rwkv6-7b", ["--smoke", "--arch", "rwkv6-7b"],
                             serve.main),
                            ("launch.serve_llm", ["--smoke"], serve_llm.main)):
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        eng = fn(argv)
-        torch.cuda.synchronize()
-        c = ops.launch_counts()
+        with counting_launches() as c:
+            eng = fn(argv)
+            torch.cuda.synchronize()
         expected = expected_launches(eng.cfg, eng.prefills, eng.steps)
-        m[name] = dict(seconds=time.perf_counter() - t0, prefills=eng.prefills,
-                       steps=eng.steps, launches=c)
-        log(f"  {name} --smoke on cuda: {m[name]['seconds']:.2f} s, "
-            f"prefills={eng.prefills} decode_steps={eng.steps} launches={c} "
-            f"expected={expected}")
+        m[name] = dict(prefills=eng.prefills, steps=eng.steps, launches=c)
+        log(f"  {name} --smoke on cuda: prefills={eng.prefills} "
+            f"decode_steps={eng.steps} launches={c} expected={expected}")
         assert eng.steps > 0 and c == expected, f"{name}: launch counts differ"
         for k, v in c.items():
             counts[k] = counts.get(k, 0) + v
@@ -2899,11 +2360,10 @@ def train_cpu_vs_card(arch, B, S):
     out = {}
     for dev, p in (("cpu", cpu_params), ("cuda", gpu_params)):
         b = batch_to(batch, dev)
-        t0 = time.perf_counter()
         _, _, m = step(p, init_opt_state(p), b)
         grads, _ = loss_and_grads(cfg, p, b)
-        out[dev] = (m, tree_leaves(grads), time.perf_counter() - t0)
-    (mc, gc_, tc), (mg, gg, tg) = out["cpu"], out["cuda"]
+        out[dev] = (m, tree_leaves(grads))
+    (mc, gc_), (mg, gg) = out["cpu"], out["cuda"]
     loss_rel = abs(float(mc["loss"]) - float(mg["loss"])) / abs(float(mc["loss"]))
     gn_rel = abs(float(mc["grad_norm"]) - float(mg["grad_norm"])) / float(mc["grad_norm"])
     leaf_rel = max((a - b.cpu()).abs().max().item() / max(a.abs().max().item(), 1e-30)
@@ -2912,12 +2372,10 @@ def train_cpu_vs_card(arch, B, S):
         f"S={S}): loss {float(mc['loss']):.6f} vs {float(mg['loss']):.6f} "
         f"(rel {loss_rel:.2e} <= 1e-4), grad_norm {float(mc['grad_norm']):.6f} "
         f"vs {float(mg['grad_norm']):.6f} (rel {gn_rel:.2e} <= 1e-3), largest "
-        f"per-leaf gradient error / leaf max {leaf_rel:.2e}; cpu {tc:.2f} s, "
-        f"card {tg:.2f} s")
+        f"per-leaf gradient error / leaf max {leaf_rel:.2e}")
     assert loss_rel <= 1e-4, f"{arch}: loss differs by {loss_rel:.2e} relative"
     assert gn_rel <= 1e-3, f"{arch}: grad_norm differs by {gn_rel:.2e} relative"
-    return dict(loss_rel=loss_rel, grad_norm_rel=gn_rel, leaf_rel=leaf_rel,
-                cpu_s=tc, card_s=tg)
+    return dict(loss_rel=loss_rel, grad_norm_rel=gn_rel, leaf_rel=leaf_rel)
 
 
 # ---------------------------------------------------------------------------
@@ -2948,8 +2406,6 @@ def checkpoint_phase():
     fault-tolerance example on the card."""
     import shutil
 
-    from repro_torch.distributed import checkpoint as ckpt_mod
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve_llm, train, train_tiny
 
     ckdir = os.path.join(ROOT, "build", "ckpt_phase6")
@@ -2958,78 +2414,35 @@ def checkpoint_phase():
             "--steps", str(CKPT_STEPS), "--batch", str(TRAIN_B),
             "--seq", str(TRAIN_S), "--lr", "1e-3", "--ckpt-dir", ckdir,
             "--ckpt-every", "0"]
-    before = ops.launch_counts()
-    t0 = time.perf_counter()
-    loop = train.main(argv)
-    train_s = time.perf_counter() - t0
-    assert ops.launch_counts() == before, "training launched a hand-written kernel"
+    with counting_launches() as counts:
+        loop = train.main(argv)
+    assert not any(counts.values()), "training launched a hand-written kernel"
     assert all(map(math.isfinite, loop.history)), "a loss is not finite"
     ck = loop.ckpt
     assert ck.available_steps() == [CKPT_STEPS], "not exactly one checkpoint"
-    step_dir = ck._step_dir(CKPT_STEPS)
-    disk = sum(os.path.getsize(os.path.join(step_dir, f))
-               for f in os.listdir(step_dir))
-    sv = dict(ck.last_save)
-    # the save's first part, the JAX-layout stack on the card, runs before
-    # the checkpointer's clock starts: time it again on the saved state
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loop._ckpt_tree()
-    torch.cuda.synchronize()
-    layout_s = time.perf_counter() - t0
-    save_s = layout_s + sv["snapshot_s"] + sv["write_s"]
-    m = dict(codec=ck.codec, zstandard_present=ckpt_mod.zstandard is not None,
-             steps=CKPT_STEPS, train_s=train_s, losses=loop.history,
-             bytes_on_disk=disk, shard_bytes=sv["bytes"],
-             raw_bytes=sv["raw_bytes"], layout_s=layout_s,
-             snapshot_s=sv["snapshot_s"], write_s=sv["write_s"],
-             save_s=save_s, save_mb_s=sv["raw_bytes"] / 1e6 / save_s)
+    m = dict(codec=ck.codec, steps=CKPT_STEPS, losses=loop.history)
     log(f"  trained {CKPT_STEPS} steps at {TRAIN_B}x{TRAIN_S} through "
-        f"launch.train in {train_s:.2f} s (loss {loop.history[0]:.3f} -> "
-        f"{loop.history[-1]:.3f}); one save at step {CKPT_STEPS}, codec "
-        f"{ck.codec} (zstandard {'present' if m['zstandard_present'] else 'absent'})"
-        f": {disk} bytes on disk ({sv['raw_bytes']} bytes of msgpack, ratio "
-        f"{sv['bytes'] / sv['raw_bytes']:.3f}); JAX-layout stack on the card "
-        f"{layout_s:.3f} s (timed again on the saved state), copy to the "
-        f"host {sv['snapshot_s']:.3f} s, write {sv['write_s']:.2f} s (pack, "
-        f"compress, digest, rename); save {save_s:.2f} s = "
-        f"{m['save_mb_s']:.1f} MB/s of msgpack")
+        f"launch.train (loss {loop.history[0]:.3f} -> {loop.history[-1]:.3f}); "
+        f"one save at step {CKPT_STEPS}, codec {ck.codec}")
 
     restored = {}
     for dev in ("cuda", "cpu"):
-        # the whole cold restart: init, then restore_if_available (both
-        # digest passes, inflate, unpack, copy to the device)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
         loop2, data = train.build(train.parse_args(
             argv + ["--resume", "--device", dev]))
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         data.close()
-        r = dict(loop2.ckpt.last_restore)
         same_loop_state(loop2, loop, f"cold restart on {dev}")
         assert loop2.params["embed"].device.type == dev
         restored[dev] = loop2
-        # Checkpointer.restore's own clock: its digest pass, inflate, unpack
-        m[f"restore_{dev}"] = dict(r, host_read_s=r["seconds"], seconds=wall,
-                                   mb_s=r["raw_bytes"] / 1e6 / wall)
-        log(f"  cold restart with --resume on {dev}: {wall:.2f} s = "
-            f"{m[f'restore_{dev}']['mb_s']:.1f} MB/s of msgpack (init, both "
-            f"digest passes, inflate, unpack, copy to {dev}); of it "
-            f"Checkpointer.restore's host read {r['seconds']:.2f} s (its "
-            f"digest pass {r['valid_s']:.2f} s); params (bf16), mu/nu (fp32) "
-            f"and step {loop2.step_idx} equal to the saved ones bit for bit")
+        log(f"  cold restart with --resume on {dev}: params (bf16), mu/nu "
+            f"(fp32) and step {loop2.step_idx} equal to the saved ones bit for bit")
     del restored["cpu"]
     shutil.rmtree(ckdir, ignore_errors=True)
 
     cfg = loop.cfg
-    ops.reset_launch_counts()
-    eng, reqs = serve_llm.serve(cfg, restored["cuda"].params, serve_llm.PROMPTS,
-                                device="cuda")
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    with counting_launches() as counts:
+        eng, reqs = serve_llm.serve(cfg, restored["cuda"].params, serve_llm.PROMPTS,
+                                    device="cuda")
+        torch.cuda.synchronize()
     expected = expected_launches(cfg, eng.prefills, eng.steps)
     assert all(r.done for r in reqs) and len(reqs) == 8, "unfinished requests"
     log(f"  served the restored params: prefills={eng.prefills} "
@@ -3042,20 +2455,18 @@ def checkpoint_phase():
     del loop, restored, eng
     free_card()
 
-    t0 = time.perf_counter()
     tiny = train_tiny.main(["--steps", str(TINY_STEPS)])
-    tiny_s = time.perf_counter() - t0
     fails = tiny["failures"]
     assert [f["restored"] for f in fails] == [True, True], \
         f"failures not recovered from disk: {fails}"
     assert tiny["restarted"].step_idx == TINY_STEPS, "cold restart is short"
     assert tiny["loop"].params["embed"].is_cuda
     m["train_tiny"] = dict(steps=TINY_STEPS, fail_at=tiny["fail_at"],
-                           failures=fails, kept=tiny["kept"], seconds=tiny_s,
+                           failures=fails, kept=tiny["kept"],
                            losses=tiny["loop"].history)
     log(f"  train_tiny on the card ({tiny['loop'].cfg.name}, {TINY_STEPS} "
         f"steps): failures at {tiny['fail_at']} recovered from disk, kept "
-        f"{tiny['kept']}, cold restart at step {TINY_STEPS}; {tiny_s:.2f} s")
+        f"{tiny['kept']}, cold restart at step {TINY_STEPS}")
     return counts, m
 
 
@@ -3073,12 +2484,27 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    phase_s = {}
+    counts = dict.fromkeys(LAUNCHERS.values(), 0)
+
+    def phase(name, fn, *args, **kw):
+        """fn's result, its seconds into phase_s; the card freed after it."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t0
+        free_card()
+        return out
+
+    def counted(name, fn, *args, **kw):
+        """A phase that returns (launches, record): its launches added to
+        the run's, its record returned."""
+        c, record = phase(name, fn, *args, **kw)
+        for k, v in c.items():
+            counts[k] += v
+        return record
 
     log("phase 1: build")
-    t0 = time.perf_counter()
-    _build.load_library()
-    log(f"  built and loaded in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.build_log.get('seconds', 0.0):.2f} s)")
+    phase("1", _build.load_library)
     ptxas = str(_build.build_log.get("ptxas", ""))
     with open(os.path.join(OUT_DIR, "ptxas.log"), "w") as f:
         f.write(ptxas)
@@ -3103,71 +2529,40 @@ def main() -> int:
     assert len(rope_regs) == 4, f"expected 4 rope instances, got {len(rope_regs)}"
 
     log("phase 2: kernels against their plain versions on the card")
-    t2 = time.perf_counter()
     errs = {}
-    check_kernels(errs)
-    timing = time_kernels()
-    phase_s = {"2": time.perf_counter() - t2}
+    phase("2", check_kernels, errs)
+    timing = phase("2 timing", time_kernels)
 
-    counts, serve = {}, {}
+    serve = {}
     for arch, kvq, layers in SERVED_PATHS:
         name = arch + ("+kv_quant" if kvq else "")
         log(f"phase 3: full-width serving, {name}")
-        t3 = time.perf_counter()
         if get_config(arch).is_encdec:
-            c, serve[name] = serve_encdec(arch)
+            serve[name] = counted("3 " + name, serve_encdec, arch)
         else:
-            c, serve[name] = serve_full_width(arch, kv_quant=kvq, n_layers=layers)
-        serve[name]["phase_s"] = time.perf_counter() - t3
-        log(f"  {name}: phase 3 took {serve[name]['phase_s']:.1f} s")
-        for k, v in c.items():
-            counts[k] = counts.get(k, 0) + v
-        free_card()
+            serve[name] = counted("3 " + name, serve_full_width, arch,
+                                  kv_quant=kvq, n_layers=layers)
 
     log("paged phase: the paged KV cache at full width")
-    c, paged = paged_phase()
-    for k, v in c.items():
-        counts[k] = counts.get(k, 0) + v
+    paged = counted("paged", paged_phase)
     errs["decode_attention"] = max(errs["decode_attention"], paged["max_abs_err"])
-    free_card()
 
     log("assigned shapes: decode_32k, prefill_32k and train_4k, full-width "
         "dcache-agent-150m in bf16")
-    ta = time.perf_counter()
-    c, shapes = assigned_shapes()
-    for k, v in c.items():
-        counts[k] = counts.get(k, 0) + v
+    shapes = counted("assigned shapes", assigned_shapes)
     for k, v in shapes.pop("errs").items():
         errs[k] = max(errs[k], v)
-    phase_s["assigned shapes"] = time.perf_counter() - ta
-    phase_s["train_4k"] = shapes["train_4k"]["seconds"]
-    free_card()
 
     log("bench: the serving bench's twin on the card")
-    tb = time.perf_counter()
-    c, bench = bench_phase()
-    for k, v in c.items():
-        counts[k] = counts.get(k, 0) + v
-    phase_s["bench"] = time.perf_counter() - tb
-    free_card()
+    bench = counted("bench", bench_phase)
 
     log("agent: the paper's cache decisions made by full-width "
         "dcache-agent-150m on the card")
-    tg = time.perf_counter()
-    c, agent = agent_phase()
-    for k, v in c.items():
-        counts[k] = counts.get(k, 0) + v
-    phase_s["agent"] = time.perf_counter() - tg
-    free_card()
+    agent = counted("agent", agent_phase)
 
     log("concurrent: the fleet's admission and replication decisions made by "
         "full-width dcache-agent-150m on the card")
-    tc = time.perf_counter()
-    c, conc = concurrent_phase()
-    for k, v in c.items():
-        counts[k] = counts.get(k, 0) + v
-    phase_s["concurrent"] = time.perf_counter() - tc
-    free_card()
+    conc = counted("concurrent", concurrent_phase)
 
     # phase 4 covers each kernel instance's head dim and group: d 64 (dense,
     # kv_quant), the WKV path, d 128 at G 4 with qk_norm, d 96 at G 1, d 128
@@ -3180,13 +2575,10 @@ def main() -> int:
                       ("seamless-m4t-large-v2", False), ("llava-next-34b", False)):
         name = arch + ("+kv_quant" if kvq else "")
         log(f"phase 4: CPU vs card, fp32, {name}")
-        t4 = time.perf_counter()
-        worst, ties, flips = cpu_vs_card(arch, kv_quant=kvq)
-        phase_s["4 " + name] = time.perf_counter() - t4
+        worst, ties, flips = phase("4 " + name, cpu_vs_card, arch, kv_quant=kvq)
         serve[name].update(cpu_vs_card_max_logit_diff=worst,
                            cpu_vs_card_near_ties=ties,
                            cpu_vs_card_int8_code_flips=flips)
-        free_card()
     # the reduced configs (head dim 16) of every family: the dense ones (the
     # four variants too), rwkv6 (WKV at head dim 16), MoE (llama4 too: its
     # reduced super-layer fits where full width does not), hybrid, encdec
@@ -3194,129 +2586,30 @@ def main() -> int:
     reduced = {}
     for arch in REDUCED_ARCHS:
         log(f"phase 4: CPU vs card, fp32, {arch} reduced")
-        t4 = time.perf_counter()
-        worst, ties, _ = cpu_vs_card(arch, reduced=True)
-        phase_s["4 " + arch + " reduced"] = time.perf_counter() - t4
+        worst, ties, _ = phase(f"4 {arch} reduced", cpu_vs_card, arch, reduced=True)
         reduced[arch] = dict(max_logit_diff=worst, near_ties=ties)
-        free_card()
     log("phase 4: CPU vs card, fp32, the reduced dcache as the cache "
         "controller's decision model")
-    t4 = time.perf_counter()
-    agent["cpu_vs_card"] = agent_cpu_vs_card()
-    phase_s["4 agent"] = time.perf_counter() - t4
-    free_card()
+    agent["cpu_vs_card"] = phase("4 agent", agent_cpu_vs_card)
     log("phase 4: CPU vs card, fp32, the reduced dcache as the concurrent "
         "engine's admission and replication decision model")
-    t4 = time.perf_counter()
-    conc["cpu_vs_card"] = concurrent_cpu_vs_card()
-    phase_s["4 concurrent"] = time.perf_counter() - t4
-    free_card()
+    conc["cpu_vs_card"] = phase("4 concurrent", concurrent_cpu_vs_card)
     log("phase 4: the launchers' --smoke mains on the card")
-    t4 = time.perf_counter()
-    c, smoke = smoke_launchers()
-    for k, v in c.items():
-        counts[k] = counts.get(k, 0) + v
-    phase_s["4 smoke launchers"] = time.perf_counter() - t4
-    free_card()
+    smoke = counted("4 smoke launchers", smoke_launchers)
 
     log("phase 5: training on the card, then serving the trained weights")
-    t5 = time.perf_counter()
-    free_card()
-    c, training = train_full_width()
-    for k, v in c.items():
-        counts[k] = counts.get(k, 0) + v
-    free_card()
+    training = counted("5", train_full_width)
     for arch, B, S in (("dcache-agent-150m", 2, 64), ("rwkv6-7b", 1, 32)):
-        training[f"cpu_vs_card_{arch}"] = train_cpu_vs_card(arch, B, S)
-        free_card()
-    training["phase_s"] = time.perf_counter() - t5
+        training[f"cpu_vs_card_{arch}"] = phase(f"5 {arch} cpu vs card",
+                                                train_cpu_vs_card, arch, B, S)
 
     log("phase 6: checkpoints, cold restarts, serving the restored weights")
-    t6 = time.perf_counter()
-    c, ckpt = checkpoint_phase()
-    for k, v in c.items():
-        counts[k] = counts.get(k, 0) + v
-    free_card()
-    ckpt["phase_s"] = time.perf_counter() - t6
+    ckpt = counted("6", checkpoint_phase)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"card: {card} | training dcache-agent-150m {TRAIN_B}x{TRAIN_S} bf16: "
-        f"step_ms={training['step_ms']:.2f} tok_s={training['tok_s']:.0f} "
-        f"peak_GiB={training['peak_bytes'] / 2**30:.3f} "
-        f"busy={100 * training['busy']:.1f}% "
-        f"launch_api_calls={training['launch_api_calls']:.0f} "
-        f"model_flop_share={100 * training['mfu']:.2f}% of 989 TFLOP/s")
-    d = training["dots"]
-    log(f"card: {card} | training remat dots vs block: step_ms="
-        f"{d['step_ms']:.2f} vs {training['step_ms']:.2f} peak_GiB="
-        f"{d['peak_bytes'] / 2**30:.3f} vs {training['peak_bytes'] / 2**30:.3f} "
-        f"max_loss_rel={d['max_loss_rel']:.2e}")
-    dk, pf = shapes["decode_32k"], shapes["prefill_32k"]
-    log(f"card: {card} | decode_32k dcache-agent-150m B={dk['B']} C={dk['C']}: "
-        f"step_ms={dk['step_ms']:.3f} device_ms={dk['device_ms']:.3f} "
-        f"decode_kernel_us={dk['decode_kernel_us']:.1f} "
-        f"bound_ms={dk['bound_ms']:.3f} share_of_bound="
-        f"{100 * dk['share_of_bound']:.1f}%")
-    log(f"card: {card} | prefill_32k dcache-agent-150m B={pf['B']} S={pf['S']}"
-        f"{' (batch cut)' if pf['batch_cut'] else ''}: prefill_ms="
-        f"{pf['prefill_ms']:.1f} device_ms={pf['device_ms']:.1f} flash_share="
-        f"{100 * pf['flash_share']:.1f}% bound_ms={pf['bound_ms']:.2f} "
-        f"flash_layer_ms={pf['flash_layer_ms']:.2f} sdpa_layer_ms="
-        f"{pf['sdpa_layer_ms']:.2f} peak_GiB={pf['peak_bytes'] / 2**30:.2f}")
-    t4k = shapes["train_4k"]
-    log(f"card: {card} | train_4k dcache-agent-150m B={t4k['B']} S={t4k['S']} "
-        f"bf16 accum={t4k['accum']} ({t4k['micro_batch']} x {t4k['S']}): "
-        f"step_ms={t4k['step_ms']:.1f} tok_s={t4k['tok_s']:.0f} "
-        f"peak_GiB={t4k['peak_bytes'] / 2**30:.3f} "
-        f"model_flop_share={100 * t4k['mfu']:.2f}% of 989 TFLOP/s "
-        f"micro_batch_busy={100 * t4k['micro_busy']:.1f}%; accum "
-        f"{t4k['first_accum']}: micro_batch_peak_GiB="
-        f"{t4k['first_micro_peak_bytes'] / 2**30:.3f}")
-    log(f"card: {card} | agent dcache-agent-150m bf16, {AGENT_TASKS} tasks: "
-        f"decisions={agent['decisions']} decision_ms median="
-        f"{agent['decision_ms_median']:.2f} max={agent['decision_ms_max']:.2f} "
-        f"kept_bytes max={max(agent['kept_bytes'])} of prompt_bytes max="
-        f"{max(agent['prompt_bytes'])} parse_fallbacks={agent['parse_fallbacks']} "
-        f"degraded={agent['degraded']} hits={agent['hits']} "
-        f"sim avg_time_s off={agent['avg_time_s_off']:.4f} "
-        f"on={agent['avg_time_s_on']:.4f} ratio={agent['sim_ratio']:.4f} "
-        f"launches={agent['launches']}")
-    sv, sb = conc["served"], conc["simllm"]
-    log(f"card: {card} | concurrent {CONC_SESSIONS} sessions x {CONC_TASKS} "
-        f"tasks, dcache-agent-150m bf16 behind admission and replication: "
-        f"decisions={sv['decisions']} (SimLLM {sb['decisions']}) decision_ms "
-        f"median={conc['decision_ms_median']:.2f} max={conc['decision_ms_max']:.2f} "
-        f"kept_bytes max={max(conc['kept_bytes'])} of prompt_bytes max="
-        f"{max(conc['prompt_bytes'])} parse_fallbacks={sv['parse_fallbacks']} "
-        f"sim p95_s served={sv['p95_task_latency_s']:.4f} "
-        f"SimLLM={sb['p95_task_latency_s']:.4f} local_hit_rate served="
-        f"{sv['local_hit_rate']:.4f} SimLLM={sb['local_hit_rate']:.4f} "
-        f"launches={conc['launches']}")
-    log(f"card: {card} | bench {' '.join(bench['rows'][1:])} "
-        f"{bench['kernel_row']}")
-    log(f"card: {card} | dcache-agent-150m serving x{BENCH_RUNS} in one process "
-        + " ".join(f"{k}=median {v['median']:.3f} min {v['min']:.3f} max "
-                   f"{v['max']:.3f}" for k, v in bench.items()
-                   if k in ("tok_s", "mean_ttft_ms", "decode_step_ms")))
-    rc, rg = ckpt["restore_cpu"], ckpt["restore_cuda"]
-    log(f"card: {card} | checkpoint dcache-agent-150m ({ckpt['codec']}): "
-        f"bytes_on_disk={ckpt['bytes_on_disk']} save_s={ckpt['save_s']:.2f} "
-        f"save_MB_s={ckpt['save_mb_s']:.1f} cold_restart_s cuda={rg['seconds']:.2f} "
-        f"cpu={rc['seconds']:.2f} cold_restart_MB_s cuda={rg['mb_s']:.1f} "
-        f"cpu={rc['mb_s']:.1f} host_read_s cuda={rg['host_read_s']:.2f} "
-        f"cpu={rc['host_read_s']:.2f} phase_s={ckpt['phase_s']:.1f}")
-    for name, sv in serve.items():
-        log(f"card: {card} | {name} serving L={sv['n_layers']}/{sv['full_layers']} "
-            f"tok/s={sv['tok_s']:.1f} mean_ttft_ms={sv['mean_ttft_ms']:.2f} "
-            f"decode_step_ms={sv['decode_step_ms']:.3f} "
-            f"decode_device_ms={sv['decode_device_ms']:.3f} "
-            f"prefill_device_ms={sv['prefill_device_ms']:.3f} "
-            f"kv_MiB={sv.get('kv_cache_bytes', 0) / 2**20:.1f} "
-            f"decode_launch_api_calls={sv['decode_launch_api_calls']:.1f} "
-            f"decode_busy={100 * sv['decode_busy']:.1f}% "
-            f"weights_read_floor_ms={sv['weights_read_floor_ms']:.3f}")
+    log(f"card: {card}")
     src = {"rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                        "src/repro/kernels/rmsnorm.py:27"),
            "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -3334,10 +2627,10 @@ def main() -> int:
            # and decode_attend's ring write
            "rope": ("src/repro_torch/kernels/csrc/rope.cu",
                     "src/repro/models/common.py:rope")}
-    # launches: summed over phase 3's served paths, the paged phase, the
-    # assigned shapes (decode_32k, prefill_32k), the bench's served run, the
-    # agent and concurrent phases' decisions, the two --smoke mains and the serving of the trained and of the restored
-    # weights; each counted from zero and held to the counts its own
+    # launches: summed over every phase that counts them (phase 3's served
+    # paths, the paged phase, the assigned shapes, the bench, the agent and
+    # concurrent phases, the --smoke mains and the serving of the trained
+    # and of the restored weights), each held to the counts its own
     # prefills and steps imply (expected_launches)
     # dims_held: the head dims (row widths for rmsnorm) each kernel was held
     # at in phase 2; the times are at dcache-agent-150m's (or rwkv6-7b's)

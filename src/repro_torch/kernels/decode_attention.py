@@ -174,11 +174,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v.stride(0), v.stride(1), v.stride(2),
         window or 0, chunk or 0, d ** -0.5, code, _build.stream_ptr(q))
     _build.check(err, "decode_attention")
-    decode_attention.launches += 1
     return out
-
-
-decode_attention.launches = 0
 
 
 def decode_attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -225,8 +221,4 @@ def decode_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *k_scale.stride(), *v_scale.stride(),
         window or 0, chunk or 0, d ** -0.5, code, _build.stream_ptr(q))
     _build.check(err, "decode_attention_int8")
-    decode_attention_int8.launches += 1
     return out
-
-
-decode_attention_int8.launches = 0

@@ -86,8 +86,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         int(causal), window or 0, chunk or 0, d ** -0.5, code,
         _build.stream_ptr(q))
     _build.check(err, "flash_attention")
-    flash_attention.launches += 1
     return out
-
-
-flash_attention.launches = 0

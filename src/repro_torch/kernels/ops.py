@@ -4,12 +4,9 @@ A tensor on the CPU takes the kernel's plain PyTorch version; a tensor on a
 CUDA device launches the hand-written Hopper kernel, or the wrapper raises.
 There is no fallback from the card to the plain version. No kernel has a
 backward, so a CUDA input that requires grad under grad mode raises
-(training takes ``forward(..., is_train=True)``). Each wrapper counts its
-kernel launches in ``<wrapper>.launches``.
+(training takes ``forward(..., is_train=True)``).
 """
 from __future__ import annotations
-
-from typing import Dict
 
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_int8)
@@ -18,19 +15,5 @@ from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rope import rope, rope_append
 from repro_torch.kernels.rwkv_wkv import wkv
 
-# rope_append launches the rope kernel and counts in rope.launches
-KERNELS = (rmsnorm, flash_attention, decode_attention, decode_attention_int8,
-           wkv, rope)
-
 __all__ = ["rmsnorm", "flash_attention", "decode_attention",
-           "decode_attention_int8", "wkv", "rope", "rope_append",
-           "launch_counts", "reset_launch_counts"]
-
-
-def launch_counts() -> Dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNELS}
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
+           "decode_attention_int8", "wkv", "rope", "rope_append"]

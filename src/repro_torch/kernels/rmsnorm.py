@@ -79,8 +79,4 @@ def rmsnorm(x: torch.Tensor, gain: torch.Tensor, *, eps: float = 1e-5) -> torch.
     err = lib.repro_rmsnorm(x.data_ptr(), gain.data_ptr(), out.data_ptr(),
                             rows, d, float(eps), code, _build.stream_ptr(x))
     _build.check(err, "rmsnorm")
-    rmsnorm.launches += 1
     return out
-
-
-rmsnorm.launches = 0

@@ -10,9 +10,8 @@ step. The kernel does them in one launch: ``rope`` at a prefill (q and k),
 ``rope_append`` at a decode step (q and k at ``pos``, then the roped k and
 v into slot ``pos % C`` of the rings, in place). Bytes bound it (one read
 and one write of q, k and v); each block ropes one row, computing its cos
-and sin once for every head. Both entry points count their launches in
-``rope.launches``. See the source for the design and the numerics, which
-follow the plain version's fp32 op order on the card.
+and sin once for every head. See the source for the design and the
+numerics, which follow the plain version's fp32 op order on the card.
 """
 from __future__ import annotations
 
@@ -98,7 +97,6 @@ def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
         *q.stride()[:3], *k.stride()[:3], 0, 0, 0, *pos.stride(),
         S * KV * hd, KV * hd, 0, 0, -math.log(theta), code, _build.stream_ptr(q))
     _build.check(err, name)
-    rope.launches += 1
     return q_out, k_out
 
 
@@ -110,8 +108,8 @@ def rope_append(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     (B,1,KV,hd) written into slot pos % C of the rings k/v_cache
     (B,C,KV*hd) in place (base pointers and strides in multiples of 16
     bytes, as the decode kernel reads them). Returns the roped q, fresh and
-    contiguous. CPU tensors take the plain version, CUDA tensors the kernel,
-    counted in ``rope.launches``."""
+    contiguous. CPU tensors take the plain version, CUDA tensors the
+    kernel."""
     if _build.use_plain("rope_append", q, k_new, v_new, pos, k_cache, v_cache):
         return rope_append_plain(q, k_new, v_new, pos, k_cache, v_cache, theta)
     name = "rope_append"
@@ -135,8 +133,4 @@ def rope_append(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
         *v_new.stride()[:3], 1, 0, *k_cache.stride()[:2], *v_cache.stride()[:2],
         -math.log(theta), code, _build.stream_ptr(q))
     _build.check(err, name)
-    rope.launches += 1
     return q_out
-
-
-rope.launches = 0

@@ -200,11 +200,9 @@ def attention_calls(d):
 @pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
                                   "decode_attention_int8"])
 def test_wrappers_refuse_unbuilt_head_dim(card_route, name):
-    tops.reset_launch_counts()
     with pytest.raises(ValueError, match="head dim 80"):
         attention_calls(80)[name]()
     assert HEAD_DIMS == (16, 32, 64, 96, 128)
     for d in HEAD_DIMS:   # accepted: the call gets as far as the library
         with pytest.raises(NoLibrary):
             attention_calls(d)[name]()
-    assert not any(tops.launch_counts().values())

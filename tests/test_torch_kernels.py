@@ -215,8 +215,7 @@ def test_rmsnorm_geometry_refuses_rows_too_wide():
     assert geometry(1, 16384 + 8, 2).loads == 0
 
 
-def test_wrappers_on_cpu_take_plain_and_count_nothing():
-    tops.reset_launch_counts()
+def test_wrappers_on_cpu_take_plain_without_the_library(no_library):
     (_, tq), (_, tk), (_, tv) = arrays(10, (1, 4, 16, 32), (1, 2, 16, 32),
                                        (1, 2, 16, 32))
     assert torch.equal(tops.flash_attention(tq, tk, tv),
@@ -236,10 +235,6 @@ def test_wrappers_on_cpu_take_plain_and_count_nothing():
     sc = torch.rand(tk.shape[:3])
     assert torch.equal(tops.decode_attention_int8(q1, kq, kq, sc, sc, pos),
                        decode_attention_int8_plain(q1, kq, kq, sc, sc, pos))
-    assert tops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0,
-                                    "decode_attention": 0,
-                                    "decode_attention_int8": 0, "wkv": 0,
-                                    "rope": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -565,9 +560,7 @@ def test_decode_wrappers_take_any_group_on_the_card_route(card_route, d, Hq,
     codes = torch.zeros((2, 1, 64, d), dtype=torch.int8)
     sc = torch.ones((2, 1, 64), dtype=dtype)
     pos = torch.zeros(2, dtype=torch.int32)
-    tops.reset_launch_counts()
     with pytest.raises(NoLibrary):
         tops.decode_attention(q, k, k, pos)
     with pytest.raises(NoLibrary):
         tops.decode_attention_int8(q, codes, codes, sc, sc, pos)
-    assert not any(tops.launch_counts().values())

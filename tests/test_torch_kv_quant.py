@@ -203,16 +203,15 @@ def test_int8_plain_empty_and_pad_slots(dtype):
     np.testing.assert_allclose(f32(out), f32(want), **tol(dtype))
 
 
-def test_int8_wrapper_on_cpu_takes_plain():
-    """On the CPU the wrapper is the plain version and counts no launch."""
+def test_int8_wrapper_on_cpu_takes_plain(no_library):
+    """On the CPU the wrapper is the plain version and never reaches the
+    kernel library."""
     B, Hq, Hkv, C, d = 2, 12, 4, 64, 64
     (_, _, tkq, tks), (_, _, tvq, tvs) = int8_ring(11, B, Hkv, C, d, "float32")
     q = torch.randn(B, Hq, d, generator=torch.Generator().manual_seed(0))
     pos = torch.tensor([3, 70], dtype=torch.int32)
-    tops.reset_launch_counts()
     assert torch.equal(tops.decode_attention_int8(q, tkq, tvq, tks, tvs, pos),
                        decode_attention_int8_plain(q, tkq, tvq, tks, tvs, pos))
-    assert tops.launch_counts()["decode_attention_int8"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -178,15 +178,18 @@ def test_attend_is_train_backpropagates_through_torch_ops(monkeypatch):
         assert g is not None and torch.isfinite(g).all() and g.abs().sum() > 0
 
 
-def test_wrappers_on_cpu_count_no_launch():
-    ops.reset_launch_counts()
+def test_wrappers_on_cpu_take_plain_without_the_library(no_library):
     q, k, v, p, ring = _ring_case(torch.float32, 16, [3, 40])
-    ops.rope(q, k, p[:, None], 10_000.0)
-    ops.rope_append(q, k, v, p, ring[0], ring[1], 10_000.0)
+    qr, kr = ops.rope(q, k, p[:, None], 10_000.0)
+    assert torch.equal(qr, rope_plain(q, p[:, None], 10_000.0))
+    assert torch.equal(kr, rope_plain(k, p[:, None], 10_000.0))
+    mine, gold = ring.clone(), ring.clone()
+    assert torch.equal(ops.rope_append(q, k, v, p, mine[0], mine[1], 10_000.0),
+                       rope_append_plain(q, k, v, p, gold[0], gold[1], 10_000.0))
+    assert torch.equal(mine, gold)
     cfg = _attn_cfg()
     pa = attn_mod.init_attention(cfg, torch.Generator().manual_seed(0), "cpu")
     attn_mod.attend(pa, cfg, randn(10, 1, 5, cfg.d_model))
-    assert ops.launch_counts()["rope"] == 0
 
 
 def card_calls(hd=64, dtype=torch.bfloat16, q=None, k=None, pos=None,
@@ -207,8 +210,7 @@ def test_wrappers_refuse_on_the_card_route(card_route, name):
     """Odd head dims, a non-contiguous last dimension and non-int32
     positions raise before the library is reached; so does a ring view off
     16 bytes (rope_append). Accepted calls, misaligned q included (the
-    kernel's scalar path), get as far as the library. Nothing launches."""
-    ops.reset_launch_counts()
+    kernel's scalar path), get as far as the library."""
     with pytest.raises(ValueError, match="even"):
         card_calls(hd=15)[name]()
     with pytest.raises(ValueError, match="even"):
@@ -226,7 +228,6 @@ def test_wrappers_refuse_on_the_card_route(card_route, name):
     off = torch.zeros(2 * 8 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 1, 8, 64)
     with pytest.raises(NoLibrary):
         card_calls(q=off)[name]()
-    assert ops.launch_counts()["rope"] == 0
 
 
 def test_rope_append_refuses_a_misaligned_or_mismatched_ring(card_route):
@@ -241,7 +242,6 @@ def test_rope_append_refuses_a_misaligned_or_mismatched_ring(card_route):
         card_calls(q=q, k=k)["rope_append"]()
     with pytest.raises(ValueError, match=r"\(B,\) int32"):
         card_calls(pos=torch.zeros((2, 1), dtype=torch.int32))["rope_append"]()
-    assert ops.launch_counts()["rope"] == 0
 
 
 @pytest.fixture

@@ -151,18 +151,16 @@ def test_wkv_plain_with_state_vs_wkv_scan(dtype, tol):
     np.testing.assert_allclose(f32(s), f32(js), **tol)
 
 
-def test_wkv_wrapper_on_cpu_takes_plain_and_updates_state_in_place():
+def test_wkv_wrapper_on_cpu_takes_plain_and_updates_state_in_place(no_library):
     r, k, v, w, u = (t(a) for a in wkv_inputs(4, 2, 5, 3, 16))
     s0 = torch.randn((2, 3, 16, 16), generator=torch.Generator().manual_seed(0))
     y_ref, s_ref = wkv_plain(r, k, v, w, u, s0)
-    tops.reset_launch_counts()
     state = s0.clone()
     y, s = tops.wkv(r, k, v, w, u, s0=state, state_out=state)
     assert s is state
     assert torch.equal(y, y_ref) and torch.equal(state, s_ref)
     y0, _ = tops.wkv(r, k, v, w, u)
     assert torch.equal(y0, wkv_plain(r, k, v, w, u)[0])
-    assert tops.launch_counts()["wkv"] == 0
 
 
 def _wkv_partition(r, k, v, w, u, s0, T):
@@ -254,15 +252,13 @@ def test_wkv_head_dims_and_partition():
 def test_wkv_wrapper_takes_built_head_dims_on_the_card_route(card_route, dtype):
     """On the card route (the device check bypassed, the library replaced
     by a sentinel) every built head dim passes the wrapper's checks and
-    reaches the library; head dim 48 raises before it, launching nothing."""
-    tops.reset_launch_counts()
+    reaches the library; head dim 48 raises before it."""
     for hd in HEAD_DIMS + (48,):
         r = torch.zeros((2, 3, 4, hd), dtype=dtype)
         w = torch.full((2, 3, 4, hd), 0.9)
         call = lambda: tops.wkv(r, r, r, w, torch.zeros((4, hd), dtype=dtype))  # noqa: E731
         with pytest.raises(ValueError if hd == 48 else NoLibrary):
             call()
-    assert tops.launch_counts()["wkv"] == 0
 
 
 def test_smoke_launcher_serves_rwkv6_as_the_jax_engine(capsys):
