@@ -14,7 +14,10 @@ numbers each path implies (``expected_launches``). The phases, in order:
      and unbuilt shapes raise and launch nothing; then the kernel timings
      behind PERF.md's kernel table (``time_kernels``);
   3. twelve paths served at full width in bf16 (``SERVED_PATHS``): tokens
-     in the vocabulary, exact launches, the unembed within 1e-3 of fp32;
+     in the vocabulary, exact launches (an engine that captures its decode
+     step held to its replays, ``engine_launches``), the unembed within 1e-3
+     of fp32; granite's captured step against eager ``decode_step`` over 64
+     steps (``captured_granite``);
   paged: a full-width PagedKVCache against the engine's ring, bit for bit;
   assigned shapes: decode_32k and prefill_32k (kernel against plain,
      absolutely and row by row; the kernel timings of their table rows),
@@ -1131,6 +1134,105 @@ def expected_launches(cfg, prefills, steps):
     return out
 
 
+def engine_launches(eng):
+    """The launches a served engine's whole life implies (``expected_launches``),
+    with the engine held to its replays. An engine that captures its decode
+    step (``captures_decode``, on the card) runs its first step eagerly and
+    calls every entry point once more to capture its second, and replays
+    that step and every later one through its graph, which calls none; it
+    replays every step but its first. Any other engine replays nothing and
+    launches at every step."""
+    from repro_torch.serving.engine import captures_decode
+
+    captured = eng.device.type == "cuda" and captures_decode(eng.cfg)
+    want = max(eng.steps - 1, 0) if captured else 0
+    assert eng.replays == want, (f"{eng.cfg.name}: {eng.replays} replays in "
+                                 f"{eng.steps} decode steps, expected {want}")
+    eager = eng.steps - eng.replays + (1 if eng.replays else 0)
+    return expected_launches(eng.cfg, eng.prefills, eager)
+
+
+def captured_against_eager(cfg, params, prompts, max_batch, max_len, n_new, tol):
+    """A captured engine (``ServingEngine`` on the card) against an eager
+    ``decode_step`` loop from the same prefills: the ``prompts`` (at most
+    ``max_batch``, all admitted at the first step) served greedily to
+    ``n_new`` tokens, the loop fed each step's tokens as the engine feeds
+    them (a live row's last token, 0 in a free slot). Each step's logits of
+    the live rows must agree within ``tol`` and give the engine's tokens.
+    Returns (decode steps, replays, max |logit diff|, bit for bit)."""
+    from repro_torch.configs import alloc_cache
+    from repro_torch.models.model import decode_step, prefill_step
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import engine as engine_mod
+
+    B, dev = max_batch, torch.device("cuda")
+    eng = ServingEngine(cfg, params, max_batch=B, max_len=max_len, device=dev)
+    seen, sample = [], engine_mod.sample
+
+    def spy(logits, *a, **k):
+        if logits.shape[0] == B:
+            seen.append(logits.clone())
+        return sample(logits, *a, **k)
+
+    reqs = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+    engine_mod.sample = spy
+    try:
+        with torch.no_grad():
+            eng.run_until_done()
+    finally:
+        engine_mod.sample = sample
+    assert eng._graph is not None and eng.replays == eng.steps - 1 == len(seen) - 1
+    cache = alloc_cache(cfg, B, max_len, dev)
+    worst, exact = 0.0, True
+    with torch.no_grad():
+        for i, r in enumerate(reqs):
+            n = len(r.prompt_ids)
+            bucket = eng._prefill_len(n)
+            ids = torch.tensor([r.prompt_ids + [0] * (bucket - n)],
+                               dtype=torch.int32, device=dev)
+            row, logits = prefill_step(cfg, params, {"tokens": ids}, max_len=max_len,
+                                       true_lens=torch.tensor([n], dtype=torch.int32,
+                                                              device=dev))
+            assert int(logits[0, -1].argmax()) == r.out_ids[0]
+            cache["pos"][i] = row["pos"][0]
+            for k, v in row.items():
+                if k != "pos":
+                    cache[k][:, i] = v[:, 0]
+        for t, got in enumerate(seen):
+            live = [i for i, r in enumerate(reqs) if len(r.out_ids) > t + 1]
+            toks = torch.zeros((B, 1), dtype=torch.int32)
+            for i in live:
+                toks[i, 0] = reqs[i].out_ids[t]
+            logits, cache = decode_step(cfg, params, toks.to(dev), cache)
+            ref = logits[live, -1, :cfg.vocab_size]
+            mine = got[live, :cfg.vocab_size]
+            exact = exact and torch.equal(ref, mine)
+            err = (ref - mine).abs().max().item()
+            worst = max(worst, err)
+            assert err <= tol, f"step {t}: replayed logits differ by {err:.3e} > {tol}"
+            assert ref.argmax(-1).tolist() == [reqs[i].out_ids[t + 1] for i in live], \
+                f"step {t}: the eager loop's greedy tokens differ from the replay's"
+    return eng.steps, eng.replays, worst, exact
+
+
+def captured_granite():
+    """granite-3-2b at full width and depth in bf16, captured: the 8 PROMPTS
+    at once in a ring of 4,096 slots (the benchmark's), 65 greedy tokens each,
+    against an eager ``decode_step`` loop (``captured_against_eager``): the
+    same tokens over at least 64 steps, the logits bit for bit or within the
+    3e-2 the port allows between routes (cuBLAS may pick another algorithm
+    under capture)."""
+    cfg, params, _, m = load_path("granite-3-2b")
+    steps, replays, worst, exact = captured_against_eager(
+        cfg, params, PROMPTS, len(PROMPTS), 4096, 65, 3e-2)
+    assert steps >= 64, f"granite captured: {steps} decode steps, fewer than 64"
+    log(f"  granite-3-2b captured against eager: {steps} decode steps, {replays} "
+        f"replays; max |logit diff| {worst:.3e} (bit for bit: {exact}); the same "
+        f"greedy tokens")
+    m.update(steps=steps, replays=replays, max_logit_diff=worst, bit_for_bit=exact)
+    return m
+
+
 def cache_bytes(cache):
     return sum(t.numel() * t.element_size() for k, t in cache.items() if k != "pos")
 
@@ -1230,7 +1332,7 @@ def serve_full_width(arch, kv_quant=False, n_layers=None):
     assert eng.finished[-1].done, "unfinished"
     assert all(0 <= t < cfg.vocab_size for r in eng.finished for t in r.out_ids)
     assert isinstance(text, str)
-    expected = expected_launches(cfg, eng.prefills, eng.steps)
+    expected = engine_launches(eng)
     log(f"  prefills={eng.prefills} decode_steps={eng.steps} "
         f"launches={counts} expected={expected}; TorchLLM -> {text!r}")
     assert counts == expected, "launch counts differ from the main path's"
@@ -1549,7 +1651,7 @@ def paged_phase():
             f"max |out| {zero_row['card_max_abs']:.4e}, plain max |out| "
             f"{zero_row['plain_max_abs']:.4e}, diff {zero_row['diff']:.4e}")
         torch.cuda.synchronize()
-    expected = expected_launches(cfg, eng.prefills, eng.steps)
+    expected = engine_launches(eng)
     expected["decode_attention"] += n_attn
     log(f"  paged phase launches={counts} expected={expected}")
     assert counts == expected, "paged phase launch counts differ"
@@ -1873,7 +1975,7 @@ def bench_phase():
     with counting_launches() as counts:
         eng, reqs, seconds = serving_bench.run_bench(cfg, params, 6, 8, "cuda")
     rows = serving_bench.serving_rows(eng, seconds)
-    expected = expected_launches(cfg, eng.prefills, eng.steps)
+    expected = engine_launches(eng)
     log("  " + " | ".join(rows) + f"; prefills={eng.prefills} "
         f"decode_steps={eng.steps} launches={counts} expected={expected}")
     assert all(r.done for r in reqs), "unfinished bench requests"
@@ -1983,7 +2085,7 @@ def agent_phase():
         assert not llm.calls, "the run without the cache asked the model"
         on = run_agent(llm, True, AGENT_TASKS)
         torch.cuda.synchronize()
-    expected = expected_launches(cfg, eng.prefills, eng.steps)
+    expected = engine_launches(eng)
     calls = llm.calls
     _, rep_off, _, _ = off
     traces, rep_on, ctrl, cache = on
@@ -2044,7 +2146,7 @@ def agent_cpu_vs_card():
         with counting_launches() as counts:
             traces = run_agent(llm, True, 2)[0]
         out[device] = (llm.calls, traces, counts,
-                       expected_launches(cfg, eng.prefills, eng.steps))
+                       engine_launches(eng))
     (c_calls, c_traces, _, _), (g_calls, g_traces, counts, expected) = out["cpu"], out["cuda"]
     assert counts == expected, "agent cpu vs card launch counts differ"
     assert [c["completion"] for c in g_calls] == [c["completion"] for c in c_calls], \
@@ -2146,7 +2248,7 @@ def concurrent_phase():
         base = episode_summary(*run_concurrent(None, CONC_SESSIONS, CONC_TASKS))[0]
         ceng, cres, logs = run_concurrent(llm, CONC_SESSIONS, CONC_TASKS)
         torch.cuda.synchronize()
-    expected = expected_launches(cfg, eng.prefills, eng.steps)
+    expected = engine_launches(eng)
     served, calls = episode_summary(ceng, cres, logs)
     m = dict(served=served, simllm=base, prefills=eng.prefills, steps=eng.steps,
              prompt_bytes=[c["prompt_bytes"] for c in calls],
@@ -2212,7 +2314,7 @@ def concurrent_cpu_vs_card():
                 _, res, _ = run_concurrent(llm, n_sessions, n_tasks, n_pods=2,
                                            capacity_per_pod=2)
             runs[device] = (llm.calls, res.metrics.row(), counts,
-                            expected_launches(cfg, eng.prefills, eng.steps))
+                            engine_launches(eng))
         (c_calls, c_row, _, _), (g_calls, g_row, counts, expected) = runs["cpu"], runs["cuda"]
         assert counts == expected, "concurrent cpu vs card launch counts differ"
         assert [c["completion"] for c in g_calls] == [c["completion"] for c in c_calls], \
@@ -2299,7 +2401,7 @@ def train_full_width():
         eng, reqs = serve_llm.serve(cfg, loop.params, serve_llm.PROMPTS, device="cuda")
         text = serve_llm.decide(eng)
         torch.cuda.synchronize()
-    expected = expected_launches(cfg, eng.prefills, eng.steps)
+    expected = engine_launches(eng)
     assert all(r.done for r in reqs) and len(reqs) == 8, "unfinished requests"
     assert isinstance(text, str), "TorchLLM returned no text"
     log(f"  served the trained params: prefills={eng.prefills} "
@@ -2329,7 +2431,7 @@ def smoke_launchers():
         with counting_launches() as c:
             eng = fn(argv)
             torch.cuda.synchronize()
-        expected = expected_launches(eng.cfg, eng.prefills, eng.steps)
+        expected = engine_launches(eng)
         m[name] = dict(prefills=eng.prefills, steps=eng.steps, launches=c)
         log(f"  {name} --smoke on cuda: prefills={eng.prefills} "
             f"decode_steps={eng.steps} launches={c} expected={expected}")
@@ -2443,7 +2545,7 @@ def checkpoint_phase():
         eng, reqs = serve_llm.serve(cfg, restored["cuda"].params, serve_llm.PROMPTS,
                                     device="cuda")
         torch.cuda.synchronize()
-    expected = expected_launches(cfg, eng.prefills, eng.steps)
+    expected = engine_launches(eng)
     assert all(r.done for r in reqs) and len(reqs) == 8, "unfinished requests"
     log(f"  served the restored params: prefills={eng.prefills} "
         f"decode_steps={eng.steps} launches={counts} expected={expected}")
@@ -2542,6 +2644,9 @@ def main() -> int:
         else:
             serve[name] = counted("3 " + name, serve_full_width, arch,
                                   kv_quant=kvq, n_layers=layers)
+
+    log("phase 3: granite-3-2b's captured decode step against eager")
+    captured = phase("3 captured", captured_granite)
 
     log("paged phase: the paged KV cache at full width")
     paged = counted("paged", paged_phase)
@@ -2643,7 +2748,7 @@ def main() -> int:
                 "bound_by": timing[n]["bound_by"],
                 "library_ms": timing[n]["library_ms"],
                 "dims_held": sorted(HELD[n])} for n in src]
-    result = {"card": card, "serving": serve, "paged": paged,
+    result = {"card": card, "serving": serve, "captured": captured, "paged": paged,
               "assigned_shapes": shapes, "bench": bench, "agent": agent,
               "concurrent": conc,
               "reduced_cpu_vs_card": reduced, "smoke_launchers": smoke,

@@ -415,8 +415,9 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     The cache's buffers (K/V and, with kv_quant, their scales; the hybrid
     family's SSM and conv states; or the recurrent state and token shifts)
     are updated IN PLACE (the JAX version returns a new cache); encdec's
-    cross K/V are only read. ``pos`` is replaced by pos + 1. Returns
-    (logits, cache)."""
+    cross K/V are only read. ``pos`` is advanced in place too, so every
+    tensor of the cache stays the object it was (a captured step reads and
+    writes the same buffers at every replay). Returns (logits, cache)."""
     x = params["embed"][tokens.long()]
     pos = cache["pos"]
     if cfg.family == "ssm":
@@ -447,6 +448,6 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                     cache["cross_v"][l], enc_pos)
             f_in = rms_norm(x, lp["norm2"], cfg.norm_eps)
             x = x + _ffn(cfg, lp, f_in, is_train=False)[0]
-    cache["pos"] = pos + 1
+    pos.add_(1)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h), cache

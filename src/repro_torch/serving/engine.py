@@ -28,6 +28,17 @@ Two deviations from the reference engine, both repairs:
 - Decode samples each slot at its own ``Request.temperature``; the
   reference samples every decode token greedily (``serving/engine.py:149``).
   A batch of greedy slots still takes the argmax and draws nothing.
+
+On a CUDA device, an engine whose model ``captures_decode`` replays its
+decode step as one CUDA graph: the step is the same ``(max_batch, 1)``
+call at every engine step, over buffers the engine owns (the cache, the
+params, a token input and the graph's logits), so its few hundred kernel
+launches go to the card in one. The first decode step runs eagerly on a
+side stream as the capture's warm-up, the second is captured and
+replayed, and every later one is a replay (``replays`` counts them). The
+prefills and the sampler stay eager; no capture starts while a profiler
+records. Every other engine, and every engine on the CPU, calls
+``decode_step`` at each step.
 """
 from __future__ import annotations
 
@@ -57,6 +68,18 @@ class Request:
     submitted_at: float = 0.0
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
+
+
+def captures_decode(cfg: ModelConfig) -> bool:
+    """Whether an engine on CUDA replays ``cfg``'s decode step as a CUDA
+    graph: a decoder with no expert layer, dense or vlm (served as the dense
+    decoder), with a bf16 or int8 ring, qk-norm, a window or a chunk alike.
+    MoE decoders stay eager while the benchmark charges device time to the
+    layer whose launch call enqueued it (``dcache_bench/trace.py``), which a
+    replay's single launch would hide from the expert layer's readers; the
+    recurrent (ssm, hybrid) families and encdec, which the engine refuses,
+    stay eager too."""
+    return cfg.moe is None and cfg.family in ("dense", "vlm")
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -98,6 +121,13 @@ class ServingEngine:
         self._gen = torch.Generator(device=self.device).manual_seed(0)
         self.steps = 0
         self.prefills = 0
+        self.replays = 0
+        # the captured decode step: its token input, graph and logits
+        self._capture = self.device.type == "cuda" and captures_decode(cfg)
+        self._tokens = (torch.zeros((max_batch, 1), dtype=torch.int32,
+                                    device=self.device) if self._capture else None)
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._logits: Optional[torch.Tensor] = None
 
     # -- cache plumbing -------------------------------------------------------
     def _install(self, slot: int, row_cache: Dict):
@@ -173,9 +203,7 @@ class ServingEngine:
             for i in active:
                 tokens[i, 0] = self.slots[i].out_ids[-1]
             with tracing.span("model.decode"):
-                logits, self.cache = decode_step(
-                    self.cfg, self.params,
-                    torch.from_numpy(tokens).to(self.device), self.cache)
+                logits = self._decode(torch.from_numpy(tokens))
             temps = [r.temperature if r is not None else 0.0 for r in self.slots]
             sampled = sample(logits[:, -1].float(), self._gen, temperature=temps)
             with tracing.span("engine.sync"):
@@ -195,6 +223,40 @@ class ServingEngine:
                     self.finished.append(req)
                     self.slots[i] = None
             return len(active)
+
+    def _decode(self, tokens: torch.Tensor) -> torch.Tensor:
+        """``decode_step`` over the batch for host ``tokens`` (max_batch, 1):
+        its logits. A captured engine runs its first step eagerly on a side
+        stream, captures its second and replays it, and replays every later
+        one; while a profiler records it runs eagerly and captures later."""
+        if not self._capture:
+            logits, self.cache = decode_step(self.cfg, self.params,
+                                             tokens.to(self.device), self.cache)
+            return logits
+        self._tokens.copy_(tokens)
+        if self._graph is None and self.steps \
+                and not torch.autograd._profiler_enabled():
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._logits = decode_step(self.cfg, self.params, self._tokens,
+                                           self.cache)[0]
+            self._graph = graph
+        if self._graph is not None:
+            with tracing.span("model.replay"):
+                self._graph.replay()
+            self.replays += 1
+            return self._logits
+        if self.steps:
+            return decode_step(self.cfg, self.params, self._tokens, self.cache)[0]
+        # the warm-up before a capture: lazy initialisation (cuBLAS handles
+        # and workspaces) happens here, off the stream that is captured
+        here = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            logits = decode_step(self.cfg, self.params, self._tokens, self.cache)[0]
+        here.wait_stream(side)
+        return logits
 
     def run_until_done(self, max_steps: int = 10_000):
         while (self.waiting or any(s is not None for s in self.slots)) \

@@ -30,7 +30,10 @@ Spans taken in ``repro_torch``:
 - ``engine.admit``: one request's admission; counts ``tokens`` (its
   length) and ``padded`` (the length it is prefilled at);
 - ``model.prefill`` and ``model.decode``: the ``prefill_step`` call and
-  the ``decode_step`` call;
+  the engine's decode step (the ``decode_step`` call, or the token copy and
+  the replay of a captured step);
+- ``model.replay``: the replay of a captured decode step's CUDA graph,
+  inside ``model.decode``;
 - ``engine.sync``: each blocking copy to the host;
 - ``moe.experts``: the expert products of one MoE layer call.
 """
