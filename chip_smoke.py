@@ -18,6 +18,11 @@ numbers each path implies (``expected_launches``). The phases, in order:
      step held to its replays, ``engine_launches``), the unembed within 1e-3
      of fp32; granite's captured step against eager ``decode_step`` over 64
      steps (``captured_granite``);
+  latent: DeepSeek-V2-Lite's two latent-attention kernels at
+     dsv2lite-react's shapes (the latent decode kernel over 64 rows of a
+     16,384-slot ring, ragged; flash at keys 192 and values 128 at S 8,192)
+     and a 4-layer full-width DeepSeek engine against the benchmark's
+     reference, under ``engine_launches``;
   paged: a full-width PagedKVCache against the engine's ring, bit for bit;
   assigned shapes: decode_32k and prefill_32k (kernel against plain,
      absolutely and row by row; the kernel timings of their table rows),
@@ -72,11 +77,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # the C entry points that launch a kernel, each with the name its launches
-# are counted under (rope_append launches the rope kernel)
+# are counted under (rope_append launches the rope kernel, the split entry
+# the flash kernel)
 LAUNCHERS = {"repro_rmsnorm": "rmsnorm", "repro_flash_attention": "flash_attention",
+             "repro_flash_attention_split": "flash_attention",
              "repro_decode_attention": "decode_attention",
              "repro_decode_attention_int8": "decode_attention_int8",
-             "repro_wkv": "wkv", "repro_rope": "rope"}
+             "repro_wkv": "wkv", "repro_rope": "rope",
+             "repro_mla_decode": "mla_decode"}
 
 
 def log(*a):
@@ -1113,23 +1121,23 @@ def expected_launches(cfg, prefills, steps):
     prefill included. Every roped self-attention layer launches the rope
     kernel once a prefill and once a step (with the ring write at a step;
     the int8 ring's rope alone): L per prefill and per step, plus the
-    encoder's Le per prefill; rwkv6 has no rope."""
+    encoder's Le per prefill; rwkv6 has no rope. A latent-attention model
+    (DeepSeek-V2) adds a third rmsnorm a layer (the latent's) and takes the
+    latent decode kernel in place of decode attention at a step."""
     L, n = cfg.n_layers, prefills + steps
+    out = dict.fromkeys(LAUNCHERS.values(), 0)
     if cfg.family == "ssm":
-        return {"rmsnorm": (3 * L + 1) * n, "flash_attention": 0,
-                "decode_attention": 0, "decode_attention_int8": 0, "wkv": L * n,
-                "rope": 0}
+        return dict(out, rmsnorm=(3 * L + 1) * n, wkv=L * n)
     if cfg.is_encdec:
         Le = cfg.n_encoder_layers
-        return {"rmsnorm": (2 * Le + 1) * prefills + (3 * L + 1) * n,
-                "flash_attention": (Le + L) * prefills,
-                "decode_attention": 2 * L * steps, "decode_attention_int8": 0,
-                "wkv": 0, "rope": Le * prefills + L * n}
-    decode = "decode_attention_int8" if cfg.kv_quant else "decode_attention"
-    norms = 4 if cfg.qk_norm else 2
-    out = {"rmsnorm": (norms * L + 1) * n, "flash_attention": L * prefills,
-           "decode_attention": 0, "decode_attention_int8": 0, "wkv": 0,
-           "rope": L * n}
+        return dict(out, rmsnorm=(2 * Le + 1) * prefills + (3 * L + 1) * n,
+                    flash_attention=(Le + L) * prefills,
+                    decode_attention=2 * L * steps, rope=Le * prefills + L * n)
+    decode = ("mla_decode" if cfg.is_mla else
+              "decode_attention_int8" if cfg.kv_quant else "decode_attention")
+    norms = 3 if cfg.is_mla else 4 if cfg.qk_norm else 2
+    out.update(rmsnorm=(norms * L + 1) * n, flash_attention=L * prefills,
+               rope=L * n)
     out[decode] = L * steps
     return out
 
@@ -1231,6 +1239,162 @@ def captured_granite():
         f"greedy tokens")
     m.update(steps=steps, replays=replays, max_logit_diff=worst, bit_for_bit=exact)
     return m
+
+
+# ---------------------------------------------------------------------------
+# latent: DeepSeek-V2-Lite's latent attention (dsv2lite-react's shapes) and
+# a reduced-depth engine against the benchmark's reference
+# ---------------------------------------------------------------------------
+
+LATENT_ROWS, LATENT_RING = 64, 16384     # dsv2lite-react: 64 slots, max_len
+LATENT_REACT = (5197, 7753)              # the react range: prompts and replies
+LATENT_LAYERS = 4                        # the engine's depth: 1 dense, 3 MoE
+
+
+def load_bench_module(kind, name):
+    """``dcache_bench/<kind>/<name>.py`` (an architecture or a reference)."""
+    import importlib.util
+
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
+    path = os.path.join(ROOT, "dcache_bench", kind, f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"chip_smoke_{kind}_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_latent(errs):
+    """The latent decode kernel against its plain version over 64 rows of a
+    16,384-slot ring (a layer's strided view of the stacked ring): positions
+    0, 1,999, C - 1 and a wrapped row, the rest in the react range, then all
+    64 in it; flash at keys 192 and values 128 (16 heads, causal, the
+    model's scale) at S 8,192 (the bucket), 7,753 (ragged) and 300. Each
+    held absolutely and row by row (``compare_rows``: a softmax over ~7K
+    slots gives outputs below the absolute tolerance). Returns the kernels'
+    profiled device times at the cell's shapes against their bounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.mla_decode import LATENT, SCORE, mla_decode_plain
+    from repro_torch.models.common import mla_softmax_scale
+
+    gen = torch.Generator(device="cuda").manual_seed(38)
+    bf = torch.bfloat16
+    cfg = get_config("deepseek-v2-lite")
+    scale, H = mla_softmax_scale(cfg), cfg.n_attn_heads
+    B, C = LATENT_ROWS, LATENT_RING
+    stacked = randn(gen, 2, B, C, SCORE, dtype=bf)
+    ring = stacked[1]
+    q = randn(gen, B, H, SCORE, dtype=bf)
+    timing = {}
+    for ragged in (True, False):
+        pos = served_pos(gen, B, C, *LATENT_REACT, ragged=ragged)
+        case = f"q ({B},{H},{SCORE}), ring ({B},{C},{SCORE}), " + (
+            "pos 0, 1999, C-1, 2C+37 and react" if ragged else "pos react")
+        out = ops.mla_decode(q, ring, pos, scale)
+        gold = mla_decode_plain(q, ring, pos, scale)
+        compare("mla_decode", case, out, gold, bf, errs)
+        compare_rows("mla_decode", case, out, gold, bf)
+        del out, gold
+    valid = torch.clamp(pos.long() + 1, max=C).sum().item()
+    nb = valid * SCORE * 2 + B * H * (SCORE + LATENT) * 2
+    b, by = bound_ms(nb, valid * H * (SCORE + LATENT) * 2, bf)
+    run = lambda: ops.mla_decode(q, ring, pos, scale)  # noqa: E731
+    timing["mla_decode react"] = dict(
+        shape=f"q ({B},{H},{SCORE}), ring ({B},{C},{SCORE}), {valid} valid slots",
+        ms=time_ms(run), device_us=kernel_device_us(device_profile(run, 20)[0],
+                                                    "mla_latent_kernel"),
+        bound_ms=b, bound_by=by)
+    del stacked, ring, q
+    free_card()
+    for S in (8192, 7753, 300):
+        qh = randn(gen, 1, S, H, 192, dtype=bf).transpose(1, 2)
+        kh = randn(gen, 1, S, H, 192, dtype=bf).transpose(1, 2)
+        vh = randn(gen, 1, S, H, 256, dtype=bf)[..., :128].transpose(1, 2)
+        case = f"q/k (1,{H},{S},192), v (1,{H},{S},128) causal"
+        out = ops.flash_attention(qh, kh, vh, causal=True, scale=scale)
+        gold = flash_attention_plain(qh, kh, vh, causal=True, scale=scale)
+        compare("flash_attention", case, out, gold, bf, errs)
+        compare_rows("flash_attention", case, out, gold, bf)
+        del out, gold
+        if S == 8192:
+            pairs = S * (S + 1) // 2
+            b, by = bound_ms((2 * 192 + 2 * 128) * H * S * 2,
+                             2 * pairs * H * (192 + 128), bf)
+            run = lambda: ops.flash_attention(qh, kh, vh, causal=True,  # noqa: E731
+                                              scale=scale)
+            timing["flash 192/128 S 8192"] = dict(
+                shape=case, ms=time_ms(run, iters=10),
+                device_us=kernel_device_us(device_profile(run, 5)[0], "flash_kernel"),
+                bound_ms=b, bound_by=by)
+        del qh, kh, vh
+        free_card()
+    for k, t in timing.items():
+        log(f"  {k}: {t['ms']:.4f} ms, device {t['device_us']:.2f} us, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
+            f"{100 * t['bound_ms'] * 1e3 / t['device_us']:.1f}% of it")
+    return timing
+
+
+def serve_deepseek():
+    """DeepSeek-V2-Lite at full width and LATENT_LAYERS layers, the weights
+    of the benchmark's architecture (``dcache_bench/architectures/
+    deepseek_v2.py``), through ServingEngine at dsv2lite-react's 64 slots
+    and 16,384-position ring: 12 prompts of 40 to 7,700 tokens (the longest
+    prefilled at the 8,192 bucket, over several capped groups), 24 new
+    tokens each, with exact launches (``engine_launches``: the latent decode
+    kernel at every step, no replay); every served token held against the
+    fp32 reference (``dcache_bench/reference/deepseek_v2.py``, through the
+    benchmark's ``judge.readings``) within dsv2lite-react's limits."""
+    from dcache_bench import judge
+    from repro_torch.serving import ServingEngine
+
+    arch = load_bench_module("architectures", "deepseek_v2")
+    ref = load_bench_module("reference", "deepseek_v2")
+    with open(os.path.join(ROOT, "dcache_bench", "configs", "deepseek-v2-lite.json")) as f:
+        spec = json.load(f)
+    with open(os.path.join(ROOT, "dcache_bench", "limits", "dsv2lite-react.json")) as f:
+        limits = json.load(f)["limits"]
+    sizes = arch.sizes(dict(spec, num_hidden_layers=LATENT_LAYERS))
+    from dcache_bench import program
+    cfg = program.model_config(arch.model_fields("deepseek-v2-lite", sizes))
+    params = arch.make_params(sizes, 3800000001, "cuda")
+    eng = ServingEngine(cfg, params, max_batch=sizes["max_batch"],
+                        max_len=sizes["max_len"], device="cuda")
+    text = " ".join(PROMPTS)
+    prompts = [(text * (1 + n // len(text)))[:n]
+               for n in (40, 300, 700, 1100, 2000, 2600, 4100, 5200, 6000, 6900,
+                         7400, 7700)]
+    with counting_launches() as counts:
+        reqs = [eng.submit(p, max_new_tokens=24) for p in prompts]
+        while eng.waiting or any(s is not None for s in eng.slots):
+            eng.step()
+        torch.cuda.synchronize()
+    assert all(r.done and 1 <= len(r.out_ids) <= 24 for r in reqs), "unfinished"
+    expected = engine_launches(eng)
+    log(f"  deepseek-v2-lite at {cfg.n_layers} layers: prefills={eng.prefills} "
+        f"decode_steps={eng.steps} launches={counts} expected={expected}")
+    assert counts == expected, "launch counts differ from the main path's"
+    assert eng.replays == 0 and sorted(eng.cache) == ["latent", "pos"]
+    got = judge.readings(ref, sizes, params, reqs,
+                         {r.rid: p for r, p in zip(reqs, prompts)}, sizes["max_len"])
+    log(f"  against the fp32 reference over {got['tokens']} tokens of {got['calls']} "
+        f"calls: gap_mean {got['gap_mean']:.4g} (limit {limits['gap_mean']}), "
+        f"miss_share {got['miss_share']:.4g}% (limit {limits['miss_share']}), "
+        f"gap_max {got['gap_max']:.4g}")
+    assert got["gap_mean"] <= limits["gap_mean"], "the engine strays from the reference"
+    assert got["miss_share"] <= limits["miss_share"], "the engine strays from the reference"
+    return counts, dict(got, n_layers=cfg.n_layers, prefills=eng.prefills,
+                        steps=eng.steps, launches=counts)
+
+
+def latent_phase():
+    errs = {}
+    timing = check_latent(errs)
+    free_card()
+    counts, served = serve_deepseek()
+    return counts, dict(timing=timing, max_abs_err=errs, served=served)
 
 
 def cache_bytes(cache):
@@ -2648,6 +2812,12 @@ def main() -> int:
     log("phase 3: granite-3-2b's captured decode step against eager")
     captured = phase("3 captured", captured_granite)
 
+    log("latent: DeepSeek-V2-Lite's latent attention kernels and a "
+        "reduced-depth engine against the benchmark's reference")
+    latent = counted("latent", latent_phase)
+    for k, v in latent["max_abs_err"].items():
+        errs[k] = max(errs.get(k, 0.0), v)
+
     log("paged phase: the paged KV cache at full width")
     paged = counted("paged", paged_phase)
     errs["decode_attention"] = max(errs["decode_attention"], paged["max_abs_err"])
@@ -2748,7 +2918,8 @@ def main() -> int:
                 "bound_by": timing[n]["bound_by"],
                 "library_ms": timing[n]["library_ms"],
                 "dims_held": sorted(HELD[n])} for n in src]
-    result = {"card": card, "serving": serve, "captured": captured, "paged": paged,
+    result = {"card": card, "serving": serve, "captured": captured,
+              "latent": latent, "paged": paged,
               "assigned_shapes": shapes, "bench": bench, "agent": agent,
               "concurrent": conc,
               "reduced_cpu_vs_card": reduced, "smoke_launchers": smoke,

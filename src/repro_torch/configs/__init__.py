@@ -1,14 +1,18 @@
 """Architecture registry: ``get_config("<arch-id>")``.
 
 Every family of the reference is registered: dense, ssm (rwkv6), moe,
-hybrid, encdec (seamless-m4t-large-v2) and vlm (llava-next-34b).
+hybrid, encdec (seamless-m4t-large-v2) and vlm (llava-next-34b). The port
+also registers deepseek-v2-lite (latent attention), which the reference
+lacks: ``get_config`` finds it, and ``ARCH_IDS``/``ALL_IDS`` keep to the
+reference's registry.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig  # noqa: F401
+from repro_torch.configs.base import (ModelConfig, MoEConfig,  # noqa: F401
+                                      SSMConfig, YarnScaling)
 from repro_torch.configs.shapes import (  # noqa: F401
     DECODE_32K,
     LONG_500K,
@@ -42,6 +46,9 @@ _ARCH_MODULES: Dict[str, str] = {
 # the assigned architectures: all but the paper's own decision model
 ARCH_IDS: List[str] = [a for a in _ARCH_MODULES if a != "dcache-agent-150m"]
 ALL_IDS: List[str] = list(_ARCH_MODULES)
+
+# the port's own: served by get_config, not in the reference's lists
+_ARCH_MODULES["deepseek-v2-lite"] = "deepseek_v2_lite"
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -1,7 +1,11 @@
 """Model/shape configuration (a copy of ``repro.configs.base``).
 
-The only change from the reference is ``torch_dtype`` in place of
-``jnp_dtype``, so that this module imports no JAX.
+The changes from the reference: ``torch_dtype`` in place of
+``jnp_dtype``, so that this module imports no JAX; and the fields of a
+latent-attention model (DeepSeek-V2's MLA: ``kv_lora_rank`` and its head
+dims, yarn ``rope_scaling``) and of its expert layer (``MoEConfig``'s
+``d_expert``, ``n_dense_layers`` and ``scoring``), which the reference
+lacks. Their defaults leave every other config as it was.
 """
 from __future__ import annotations
 
@@ -22,6 +26,30 @@ class MoEConfig:
     # 1 = every layer is MoE, 2 = every other layer (interleaved dense/MoE)
     interleave: int = 1
     n_shared_experts: int = 0  # llama4-style always-on shared expert
+    # width of each routed and shared expert; 0 = the model's d_ff
+    d_expert: int = 0
+    # leading layers with the dense FFN (DeepSeek's first_k_dense_replace)
+    n_dense_layers: int = 0
+    # "topk_softmax": softmax over the top-k logits (Mixtral);
+    # "softmax_topk": softmax over all experts' logits, then the top-k of
+    # those weights, not renormalised (DeepSeek-V2, norm_topk_prob false)
+    scoring: str = "topk_softmax"
+
+    def expert_width(self, d_ff: int) -> int:
+        return self.d_expert or d_ff
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnScaling:
+    """YaRN rope scaling as DeepSeek-V2 publishes it: the inverse
+    frequencies interpolated by parts between ``1/factor`` and 1, and the
+    attention scale's mscale (``models/common.py:yarn_inv_freq``)."""
+    factor: float = 1.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,11 +95,23 @@ class ModelConfig:
     remat: str = "block"
     unroll: bool = False
     kv_quant: bool = False
+    # latent attention (MLA, DeepSeek-V2, no q compression): K and V are
+    # decompressed from a per-token latent of kv_lora_rank, cached beside a
+    # shared rope key of qk_rope_head_dim; 0 = ordinary attention
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    rope_scaling: Optional[YarnScaling] = None
 
     # ---- derived ----
     @property
     def head_dim_(self) -> int:
         return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
 
     @property
     def padded_vocab(self) -> int:
@@ -119,8 +159,9 @@ class ModelConfig:
         """Which decoder layers are MoE layers."""
         if self.moe is None:
             return tuple(False for _ in range(self.n_layers))
-        k = self.moe.interleave
-        return tuple((i % k) == (k - 1) for i in range(self.n_layers))
+        k, first = self.moe.interleave, self.moe.n_dense_layers
+        return tuple(i >= first and (i % k) == (k - 1)
+                     for i in range(self.n_layers))
 
     def param_count(self) -> int:
         """Analytic parameter count."""
@@ -128,6 +169,12 @@ class ModelConfig:
         qdim = self.n_attn_heads * hd
         kvdim = self.n_kv_heads * hd
         attn = d * qdim + 2 * d * kvdim + qdim * d
+        if self.is_mla:
+            r, rope = self.kv_lora_rank, self.qk_rope_head_dim
+            nope, vd = self.qk_nope_head_dim, self.v_head_dim
+            h = self.n_attn_heads
+            attn = (d * h * (nope + rope) + d * (r + rope) + r
+                    + r * h * (nope + vd) + h * vd * d)
         if self.family == "hybrid" or self.family == "ssm":
             sd = (self.ssm.head_dim if self.ssm else 64) * self.n_ssm_heads
             st = self.ssm.state_size if self.ssm else 16
@@ -141,7 +188,8 @@ class ModelConfig:
             total += attn + 2 * d  # norms
             if self.moe is not None and mask[i]:
                 e = self.moe.n_experts + self.moe.n_shared_experts
-                total += e * n_ff_mats * d * f + d * self.moe.n_experts
+                total += (e * n_ff_mats * d * self.moe.expert_width(f)
+                          + d * self.moe.n_experts)
             else:
                 total += dense_ff
         if self.is_encdec:
@@ -155,7 +203,7 @@ class ModelConfig:
         """Params touched per token (MoE top-k active) — for 6·N_active·D."""
         if self.moe is None:
             return self.param_count()
-        d, f = self.d_model, self.d_ff
+        d, f = self.d_model, self.moe.expert_width(self.d_ff)
         n_ff_mats = 3 if self.act == "swiglu" else 2
         per_expert = n_ff_mats * d * f
         inactive = 0
@@ -186,7 +234,13 @@ class ModelConfig:
                 top_k=min(self.moe.top_k, 2),
                 interleave=self.moe.interleave,
                 n_shared_experts=min(self.moe.n_shared_experts, 1),
+                d_expert=32 if self.moe.d_expert else 0,
+                n_dense_layers=min(self.moe.n_dense_layers, 1),
+                scoring=self.moe.scoring,
             )
+        if self.is_mla:
+            kw.update(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                      v_head_dim=16)
         if self.ssm:
             st = 16 if self.ssm.kind == "rwkv6" else 8  # rwkv: st == hd
             kw["ssm"] = SSMConfig(state_size=st, head_dim=16,
@@ -194,3 +248,26 @@ class ModelConfig:
         if self.family == "hybrid":
             kw["ssm_head_ratio"] = 0.5
         return dataclasses.replace(self, **kw)
+
+
+# the fields the port adds to the reference's dataclasses (latent attention,
+# yarn, the expert layer's width, dense lead and scoring)
+PORT_FIELDS = {ModelConfig: ("kv_lora_rank", "qk_nope_head_dim",
+                             "qk_rope_head_dim", "v_head_dim", "rope_scaling"),
+               MoEConfig: ("d_expert", "n_dense_layers", "scoring")}
+
+
+def reference_fields(cfg) -> dict:
+    """``dataclasses.asdict(cfg)`` without ``PORT_FIELDS``: the reference's
+    own fields, what its config of the same name holds. Raises if a port
+    field is not at its default, which the reference could not express."""
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if f.name in PORT_FIELDS.get(type(cfg), ()):
+            if v != f.default:
+                raise ValueError(f"{cfg.__class__.__name__}.{f.name}={v!r}: "
+                                 "the reference has no such field")
+            continue
+        out[f.name] = reference_fields(v) if dataclasses.is_dataclass(v) else v
+    return out

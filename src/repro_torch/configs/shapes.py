@@ -69,6 +69,10 @@ def alloc_cache(cfg: ModelConfig, batch: int, seq_len: int,
     (L, B, D) in the model dtype. The vlm family has the dense layout; the
     encdec family adds the cross-attention K/V of the encoder's output,
     ``cross_k``/``cross_v`` (L, B, seq_len // 2, KV*hd) in the model dtype.
+    A latent-attention model (``cfg.is_mla``, the port's own) has one ring
+    ``latent`` (L, B, C, kv_lora_rank + qk_rope_head_dim) in the model dtype
+    in place of ``k``/``v``: each token's normed latent and roped shared
+    key (DeepSeek-V2-Lite: 1,152 bytes a position a layer).
     """
     L, dt = cfg.n_layers, cfg.torch_dtype
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -81,6 +85,14 @@ def alloc_cache(cfg: ModelConfig, batch: int, seq_len: int,
                                    device=device)
         return cache
     C = effective_cache_len(cfg, seq_len)
+    if cfg.is_mla:
+        if cfg.kv_quant or cfg.family != "moe" and cfg.family != "dense":
+            raise ValueError(f"{cfg.name}: a latent ring serves the dense and "
+                             "moe families in the model dtype only")
+        cache["latent"] = torch.zeros(
+            (L, batch, C, cfg.kv_lora_rank + cfg.qk_rope_head_dim), dtype=dt,
+            device=device)
+        return cache
     shape = (L, batch, C, cfg.n_kv_heads * cfg.head_dim_)
     kv_dt = torch.int8 if cfg.kv_quant else dt
     cache["k"] = torch.zeros(shape, dtype=kv_dt, device=device)
@@ -151,6 +163,7 @@ _CACHE_AXES = {
     "conv_state": ("layers", "batch", "", "ssm_dim"),
     "cross_k": ("layers", "batch", "cache_seq", "kv"),
     "cross_v": ("layers", "batch", "cache_seq", "kv"),
+    "latent": ("layers", "batch", "cache_seq", ""),
 }
 
 _BATCH_AXES = {

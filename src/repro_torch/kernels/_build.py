@@ -45,8 +45,11 @@ SIGNATURES: Dict[str, List] = {
     + [_I, _I, _F, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I]
     + [_L] * 12 + [_I, _I, _I, _F, _I, _P],
+    "repro_flash_attention_split": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
+    + [_L] * 12 + [_I, _I, _I, _F, _I, _P],
     "repro_wkv": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_I, _P],
-    "repro_rope": [_P] * 7 + [_I] * 6 + [_L] * 15 + [_F, _I, _P],
+    "repro_rope": [_P] * 7 + [_I] * 6 + [_L] * 15 + [_F, _P, _I, _I, _P],
+    "repro_mla_decode": [_P] * 4 + [_I] * 3 + [_L] * 4 + [_F, _P],
     "repro_rmsnorm_geometry": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     "repro_decode_attention_occupancy": [_I] * 6 + [ctypes.POINTER(_I)],
     "repro_empty": [_P],

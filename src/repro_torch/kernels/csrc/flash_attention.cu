@@ -4,7 +4,11 @@
 // Head dims 16, 32, 64, 96 and 128 are built (one template instance each):
 // 64, 96 and 128 serve the registry's configs at full width, 16 every
 // config's reduced() (the smoke launchers and the serving bench), 32 the
-// reference's own kernel sweeps.
+// reference's own kernel sweeps. One more bf16 instance takes keys of 192
+// and values of 128 (flash_kernel_mma<192, 128>): DeepSeek-V2's latent
+// attention at prefill, whose decompressed heads are 128 dims of their own
+// and 64 of the one shared rope key, with values of 128. It has no fp32
+// instance.
 //
 // Bound on the H100: at the serving shapes (B=1, Hq=12, Hkv=4, d=64,
 // S = 8..512; qwen3-4b Hq=32, Hkv=8, d=128; phi3 Hq=Hkv=32, d=96) the
@@ -82,7 +86,7 @@ constexpr int kBN = 64;        // keys per tile
 constexpr int kWarps = kBM / 16;
 constexpr int kPad = 8;        // bf16 elements (16 bytes) of row padding
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(32 * kWarps)
 flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -101,14 +105,20 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
   // and 128 (ptxas, chip_smoke.py phase 1). Re-reading Q's fragments per k-step pair instead (8 of them
   // live) cut d 128 to 187 registers but made d 64 at S 512 7-10% slower
   // (kernel_ab.py against the held fragments; PERF.md, section 6).
-  static_assert(D % 16 == 0, "n8-tiles of P.V are taken in pairs");
+  // Values of DV columns (DV = D but for the 192/128 instance) take DV / 8
+  // n8-tiles of P.V and V rows of DV + 8 elements (272 bytes at 128).
+  static_assert(D % 16 == 0 && DV % 16 == 0, "n8-tiles of P.V are taken in pairs");
+  static_assert(DV <= D, "a V row's copies ride on its K row's");
   using bf16 = __nv_bfloat16;
   constexpr int kRow = D + kPad;
+  constexpr int kRowV = DV + kPad;
   constexpr int kChunks = D / 8;          // 16-byte copies per row
+  constexpr int kChunksV = DV / 8;
+  constexpr int kStage = kBN * (kRow + kRowV);
   constexpr int kThreads = 32 * kWarps;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [kBM][kRow]
-  bf16* KVs = Qs + kBM * kRow;                    // [2 stages][K, V][kBN][kRow]
+  bf16* KVs = Qs + kBM * kRow;     // [2 stages][K [kBN][kRow], V [kBN][kRowV]]
 
   const int R0 = blockIdx.x * kBM;
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -136,23 +146,24 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
     return kt;
   };
   auto issue = [&](int kt, int stage) {
-    bf16* ks = KVs + stage * 2 * kBN * kRow;
+    bf16* ks = KVs + stage * kStage;
     bf16* vs = ks + kBN * kRow;
     for (int i = tid; i < kBN * kChunks; i += kThreads) {
       const int j = i / kChunks, c = i % kChunks, p = kt * kBN + j;
       const bool ok = p < S;
       const int ps = ok ? p : 0;
       cp_async16(ks + j * kRow + c * 8, kbase + ps * st.ks + c * 8, ok);
-      cp_async16(vs + j * kRow + c * 8, vbase + ps * st.vs + c * 8, ok);
+      if (kChunksV == kChunks || c < kChunksV)
+        cp_async16(vs + j * kRowV + c * 8, vbase + ps * st.vs + c * 8, ok);
     }
   };
 
   // this lane's two rows of the warp's 16: r and r + 8, at positions qpos[]
   const int r_lane = warp * 16 + lane / 4;
   const int qpos[2] = {(R0 + r_lane) / G, (R0 + r_lane + 8) / G};
-  float o[D / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DV / 8; ++n)
     o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
   float l[2] = {0.f, 0.f};   // this lane's share of the row sums
@@ -167,7 +178,7 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
     cp_async_commit();
     cp_async_wait<1>();   // Q and tile kt have landed
     __syncthreads();
-    const bf16* ks = KVs + stage * 2 * kBN * kRow;
+    const bf16* ks = KVs + stage * kStage;
     const bf16* vs = ks + kBN * kRow;
 
     // S = Q K^T for the warp's 16 rows and the tile's 64 keys
@@ -231,7 +242,7 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
       }
     }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       o[n][0] *= alpha[0];
       o[n][1] *= alpha[0];
       o[n][2] *= alpha[1];
@@ -246,9 +257,9 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
                               pack_bf16x2(sc[2 * kj + 1][0], sc[2 * kj + 1][1]),
                               pack_bf16x2(sc[2 * kj + 1][2], sc[2 * kj + 1][3])};
 #pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
+      for (int n = 0; n < DV / 8; n += 2) {
         uint32_t vb4[4];
-        ldmatrix_x4_trans(vb4, vs + (kj * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kRow
+        ldmatrix_x4_trans(vb4, vs + (kj * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kRowV
                                    + n * 8 + (lane >> 4) * 8);
         mma_bf16_16816(o[n], pa, vb4[0], vb4[1]);
         mma_bf16_16816(o[n + 1], pa, vb4[2], vb4[3]);
@@ -268,7 +279,7 @@ flash_kernel_mma(const __nv_bfloat16* __restrict__ q,
     const float inv = 1.f / ((l[rr] == 0.f) ? 1.f : l[rr]);
     bf16* orow = out + b * st.ob + (kvh * G + R % G) * st.oh + (R / G) * st.os;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DV / 8; ++n)
       store2(orow + n * 8 + 2 * (lane & 3), o[n][2 * rr] * inv, o[n][2 * rr + 1] * inv);
   }
 }
@@ -386,13 +397,13 @@ flash_kernel_fma(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, int DV = D>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
                int Hkv, int S, int G, const Strides& st, int causal, int window,
                int chunk, float scale, cudaStream_t s) {
-  constexpr int kRow = D + kPad;
-  const size_t smem = sizeof(__nv_bfloat16) * (kBM * kRow + 4 * kBN * kRow);
-  auto kern = flash_kernel_mma<D>;
+  constexpr int kRow = D + kPad, kRowV = DV + kPad;
+  const size_t smem = sizeof(__nv_bfloat16) * (kBM * kRow + 2 * kBN * (kRow + kRowV));
+  auto kern = flash_kernel_mma<D, DV>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -454,4 +465,22 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
     return launch<decltype(D)::value>(dtype, q, k, v, out, B, Hq, Hkv, S, G, st,
                                       causal, window, chunk, scale, s);
   });
+}
+
+// The same with values of their own width: v (B, Hkv, S, dv) and out (B, Hq,
+// S, dv). Built for d 192 with dv 128 in bf16 only (DeepSeek-V2's latent
+// attention at prefill); an entry point of its own, so that
+// repro_flash_attention keeps its signature.
+extern "C" int repro_flash_attention_split(
+    const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
+    int S, int d, int dv, int64_t q_b, int64_t q_h, int64_t q_s, int64_t k_b,
+    int64_t k_h, int64_t k_s, int64_t v_b, int64_t v_h, int64_t v_s, int64_t o_b,
+    int64_t o_h, int64_t o_s, int causal, int window, int chunk, float scale,
+    int dtype, void* stream) {
+  if (B <= 0 || S <= 0) return (int)cudaSuccess;
+  if (Hkv < 1 || Hq % Hkv != 0 || d != 192 || dv != 128 || dtype != kBF16)
+    return (int)cudaErrorInvalidValue;
+  const Strides st{q_b, q_h, q_s, k_b, k_h, k_s, v_b, v_h, v_s, o_b, o_h, o_s};
+  return launch_mma<192, 128>(q, k, v, out, B, Hkv, S, Hq / Hkv, st, causal, window,
+                              chunk, scale, (cudaStream_t)stream);
 }

@@ -32,10 +32,18 @@
 // multiple of it, else 1 (the scalar path of the same kernel); threads = the
 // row's items rounded up to a warp, at most 256.
 //
+// A model with scaled frequencies (DeepSeek-V2's YaRN) passes its fp32
+// table of hd/2 inverse frequencies (inv_freq, made once on the host), and
+// v may have a head width of its own (vd): latent attention ropes the 64
+// rope dims of q and of its one shared k head, and writes the latent (512
+// wide, as "v") and the roped k into one 576-wide ring row, given as two
+// views of it.
+//
 // Numerics are those of the plain version (kernels/rope.py: rope_plain) run
 // on the card, op by op in fp32: freq_i = expf((c * i) * (1 / half)) with
 // c = (float)(-ln theta) (torch's CUDA division by a host scalar multiplies
-// by its reciprocal), angle = float(pos) * freq_i, cosf and sinf, then
+// by its reciprocal), or freq_i = inv_freq[i] from the table, angle =
+// float(pos) * freq_i, cosf and sinf, then
 // x1*cos - x2*sin and x2*cos + x1*sin with each product rounded on its own
 // (__fmul_rn, __fsub_rn, __fadd_rn: no contraction into an FMA), and one
 // rounding to the element type at the end. The build has no fast math.
@@ -54,7 +62,8 @@ struct Args {
   void* q_out;
   void* k_out;
   void* v_out;              // null at a prefill
-  int S, Hq, KV, hd, C;     // C > 0: k_out/v_out are rings of C slots
+  const float* inv_freq;    // hd/2 inverse frequencies, or null: theta's
+  int S, Hq, KV, hd, vd, C; // C > 0: k_out/v_out are rings of C slots
   // strides in elements: q, k, v by (b, s, head); pos by (b, s); the k and
   // v destinations by (b, row), row being s, or the ring slot pos % C
   int64_t q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, p_b, p_s;
@@ -66,12 +75,12 @@ struct Geometry {
   int vec, items, threads, blocks;
 };
 
-Geometry geometry(int rows, int Hq, int KV, int hd, bool ring, int elem_bytes,
-                  bool aligned) {
+Geometry geometry(int rows, int Hq, int KV, int hd, int vd, bool ring,
+                  int elem_bytes, bool aligned) {
   Geometry g;
   const int v16 = 16 / elem_bytes, half = hd / 2;
-  g.vec = (aligned && half % v16 == 0) ? v16 : 1;
-  g.items = (Hq + KV) * (half / g.vec) + (ring ? KV * (hd / g.vec) : 0);
+  g.vec = (aligned && half % v16 == 0 && (!ring || vd % v16 == 0)) ? v16 : 1;
+  g.items = (Hq + KV) * (half / g.vec) + (ring ? KV * (vd / g.vec) : 0);
   const int warps = (g.items + 31) / 32;
   g.threads = warps * 32 < kMaxThreads ? warps * 32 : kMaxThreads;
   g.blocks = rows;
@@ -111,8 +120,10 @@ __global__ void __launch_bounds__(kMaxThreads) rope_kernel(const Args a) {
   const int half = a.hd >> 1;
   const float pf = __int2float_rn(p);
   for (int i = threadIdx.x; i < half; i += blockDim.x) {
-    const float freq = expf(__fmul_rn(__fmul_rn(a.neg_log_theta, __int2float_rn(i)),
-                                      a.inv_half));
+    const float freq =
+        a.inv_freq ? a.inv_freq[i]
+                   : expf(__fmul_rn(__fmul_rn(a.neg_log_theta, __int2float_rn(i)),
+                                    a.inv_half));
     const float ang = __fmul_rn(pf, freq);
     cos_t[i] = cosf(ang);
     sin_t[i] = sinf(ang);
@@ -124,7 +135,7 @@ __global__ void __launch_bounds__(kMaxThreads) rope_kernel(const Args a) {
   const T* k = static_cast<const T*>(a.k) + b * a.k_b + s * a.k_s;
   T* qo = static_cast<T*>(a.q_out) + (int64_t)row * a.Hq * a.hd;
   T* ko = static_cast<T*>(a.k_out) + b * a.ko_b + dst * a.ko_r;
-  const int per_half = half / VEC, per_head = a.hd / VEC;
+  const int per_half = half / VEC, per_head = a.vd / VEC;
   const int n_q = a.Hq * per_half, n_qk = n_q + a.KV * per_half;
   const int n = n_qk + (a.v ? a.KV * per_head : 0);
   for (int it = threadIdx.x; it < n; it += blockDim.x) {
@@ -149,7 +160,7 @@ __global__ void __launch_bounds__(kMaxThreads) rope_kernel(const Args a) {
       const int j = it - n_qk;
       const int h = j / per_head, c = (j - h * per_head) * VEC;
       const T* src = static_cast<const T*>(a.v) + b * a.v_b + s * a.v_s + h * a.v_h;
-      T* out = static_cast<T*>(a.v_out) + b * a.vo_b + dst * a.vo_r + h * a.hd;
+      T* out = static_cast<T*>(a.v_out) + b * a.vo_b + dst * a.vo_r + h * a.vd;
       copy_vec<T, VEC>(src + c, out + c);
     }
   }
@@ -178,7 +189,8 @@ int run(const Args& a, int B, cudaStream_t s) {
               stride16(a.v_b, B, es) && stride16(a.v_s, a.S, es) &&
               stride16(a.v_h, a.KV, es) && stride16(a.vo_b, B, es) &&
               stride16(a.vo_r, rows_to, es);
-  const Geometry g = geometry(B * a.S, a.Hq, a.KV, a.hd, a.v != nullptr, es, aligned);
+  const Geometry g = geometry(B * a.S, a.Hq, a.KV, a.hd, a.vd, a.v != nullptr, es,
+                              aligned);
   if (g.vec > 1)
     rope_kernel<T, 16 / sizeof(T)><<<g.blocks, g.threads, 0, s>>>(a);
   else
@@ -192,8 +204,10 @@ int run(const Args& a, int B, cudaStream_t s) {
 // dimension; pos int32 by (b, s) strides. q_out is a contiguous
 // (B,S,Hq,hd). C == 0 (a prefill): k_out is a contiguous (B,S,KV,hd)
 // (ko_b, ko_r its batch and row strides), v and v_out are null. C > 0 (a
-// decode step, S == 1): k_out and v_out are (B,C,KV*hd) rings whose slot
-// pos % C receives the roped k and v; v is (B,1,KV,hd).
+// decode step, S == 1): k_out is a (B,C,KV*hd) ring and v_out a (B,C,KV*vd)
+// one, with row strides ko_r and vo_r, whose slot pos % C receives the
+// roped k and v; v is (B,1,KV,vd). inv_freq: null (the frequencies of
+// theta) or a device table of hd/2 fp32 inverse frequencies.
 extern "C" int repro_rope(const void* q, const void* k, const void* v,
                           const void* pos, void* q_out, void* k_out, void* v_out,
                           int B, int S, int Hq, int KV, int hd, int C,
@@ -202,12 +216,13 @@ extern "C" int repro_rope(const void* q, const void* k, const void* v,
                           int64_t v_b, int64_t v_s, int64_t v_h,
                           int64_t p_b, int64_t p_s, int64_t ko_b, int64_t ko_r,
                           int64_t vo_b, int64_t vo_r, float neg_log_theta,
-                          int dtype, void* stream) {
+                          const void* inv_freq, int vd, int dtype, void* stream) {
   if (B <= 0 || S <= 0) return (int)cudaSuccess;
   if (hd < 2 || hd % 2 || hd / 2 > kMaxHalf || Hq < 1 || KV < 1 || C < 0 ||
-      (C > 0 && (S != 1 || !v || !v_out)))
+      (C > 0 && (S != 1 || !v || !v_out || vd < 1)))
     return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, (const int*)pos, q_out, k_out, v_out, S, Hq, KV, hd, C,
+  Args a{q, k, v, (const int*)pos, q_out, k_out, v_out, (const float*)inv_freq,
+         S, Hq, KV, hd, C > 0 ? vd : hd, C,
          q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, p_b, p_s,
          ko_b, ko_r, vo_b, vo_r, neg_log_theta, 1.0f / (float)(hd / 2)};
   cudaStream_t s = (cudaStream_t)stream;

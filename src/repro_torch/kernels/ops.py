@@ -11,9 +11,10 @@ from __future__ import annotations
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_int8)
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mla_decode import mla_decode
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rope import rope, rope_append
 from repro_torch.kernels.rwkv_wkv import wkv
 
 __all__ = ["rmsnorm", "flash_attention", "decode_attention",
-           "decode_attention_int8", "wkv", "rope", "rope_append"]
+           "decode_attention_int8", "mla_decode", "wkv", "rope", "rope_append"]

@@ -20,6 +20,18 @@ tensor cores); the decode kernels, the fp32 prefill kernel and the plain
 versions keep P in fp32, as the Pallas kernels do, so in bf16 they differ
 from the XLA path by about one bf16 rounding.
 
+Latent attention (MLA, DeepSeek-V2; ``cfg.is_mla``, which the reference
+lacks) has its own weights (``init_mla``) and two paths, both inside one
+``mla.attend`` span. ``mla_attend`` (prefill) decompresses each token's
+latent through ``wkv_b`` into per-head K (its own 128 dims and the one
+shared 64-dim rope key) and V (128) and runs causal ``ops.flash_attention``
+at key width 192 and value width 128; ``mla_decode_attend`` (a decode
+step) is absorbed: q_nope goes into the latent space through W_UK, the
+scores and the weighted sum run over the latent ring (``ops.mla_decode``),
+and W_UV takes the latent output back. Both keep the ring row [normed
+latent | roped k_rope]. The rope dims take rotate-half (the published
+interleaved layout is a fixed permutation of the weights' rope columns).
+
 Training (``attend(..., is_train=True)``) takes no kernel: the kernels have
 no backward, and JAX trains on its XLA path. ``attention_xla`` is that
 path in eager, differentiable torch ops on any device, with the XLA
@@ -32,10 +44,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.rope import rope_plain
-from repro_torch.models.common import init_param, rms_norm
+from repro_torch.models.common import (init_param, mla_softmax_scale,
+                                       rms_norm, rope_inv_freq)
 
 NEG_INF = -1e30
 
@@ -278,3 +293,96 @@ def cross_decode_attend(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     vc = cross_v.view(B, S_enc, kvh, hd).transpose(1, 2)
     o = ops.decode_attention(q, kc, vc, pos)
     return o.reshape(B, 1, -1) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# latent attention (MLA, DeepSeek-V2, no q compression)
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg: ModelConfig, generator: torch.Generator,
+             device: torch.device) -> Dict[str, torch.Tensor]:
+    """One MLA layer in the (d_in, d_out) orientation: ``wq`` (D, H*(nope +
+    rope)), each head's columns [q_nope | q_rope]; ``wkv_a`` (D, r + rope),
+    [latent | k_rope]; the latent's norm gain ``kv_norm`` (r,); ``wkv_b``
+    (r, H*(nope + vd)), each head's columns [k_nope | v]; ``wo`` (H*vd, D)."""
+    H, d, dt = cfg.n_attn_heads, cfg.d_model, cfg.torch_dtype
+    r, nope, rope, vd = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
+                         cfg.qk_rope_head_dim, cfg.v_head_dim)
+    return {
+        "wq": init_param((d, H * (nope + rope)), generator, dt, device),
+        "wkv_a": init_param((d, r + rope), generator, dt, device),
+        "kv_norm": torch.ones((r,), dtype=dt, device=device),
+        "wkv_b": init_param((r, H * (nope + vd)), generator, dt, device),
+        "wo": init_param((H * vd, d), generator, dt, device,
+                         scale=1.0 / max(cfg.n_layers, 1) ** 0.5),
+    }
+
+
+def _mla_project(p: Dict, cfg: ModelConfig, x: torch.Tensor, is_train: bool):
+    """q (B,S,H,nope+rope), the normed latent (B,S,r) and the unroped
+    k_rope (B,S,1,rope) of x (B,S,D)."""
+    B, S, _ = x.shape
+    r, rope = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    q = (x @ p["wq"]).view(B, S, cfg.n_attn_heads, -1)
+    kv_a = x @ p["wkv_a"]
+    c = rms_norm(kv_a[..., :r].contiguous(), p["kv_norm"], cfg.norm_eps,
+                 is_train=is_train)
+    return q, c, kv_a[..., r:].view(B, S, 1, rope)
+
+
+def mla_attend(p: Dict, cfg: ModelConfig, x: torch.Tensor, *,
+               is_train: bool = False, return_latent: bool = False):
+    """Causal latent attention over a whole sequence in the decompressed
+    form. x: (B,S,D) -> (B,S,D); with ``return_latent`` also each token's
+    ring row (B,S,r + rope): the normed latent and the roped k_rope."""
+    B, S, _ = x.shape
+    H, nope, rope, vd = (cfg.n_attn_heads, cfg.qk_nope_head_dim,
+                         cfg.qk_rope_head_dim, cfg.v_head_dim)
+    with tracing.span("mla.attend"):
+        q, c, k_pe = _mla_project(p, cfg, x, is_train)
+        pos = torch.arange(S, dtype=torch.int32, device=x.device)
+        inv = rope_inv_freq(cfg, rope, x.device)
+        if is_train:
+            q_pe = rope_plain(q[..., nope:], pos, cfg.rope_theta, inv)
+            k_pe = rope_plain(k_pe, pos, cfg.rope_theta, inv)
+        else:
+            q_pe, k_pe = ops.rope(q[..., nope:], k_pe, pos, cfg.rope_theta, inv)
+        kv = (c @ p["wkv_b"]).view(B, S, H, nope + vd)
+        qh = torch.cat([q[..., :nope], q_pe], dim=-1)
+        kh = torch.cat([kv[..., :nope], k_pe.expand(B, S, H, rope)], dim=-1)
+        attn = flash_attention_plain if is_train else ops.flash_attention
+        out = attn(qh.transpose(1, 2), kh.transpose(1, 2),
+                   kv[..., nope:].transpose(1, 2), causal=True,
+                   scale=mla_softmax_scale(cfg))
+        out = out.transpose(1, 2).reshape(B, S, H * vd) @ p["wo"]
+    if return_latent:
+        return out, torch.cat([c, k_pe.reshape(B, S, rope)], dim=-1)
+    return out
+
+
+def mla_decode_attend(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                      pos: torch.Tensor, latent: torch.Tensor) -> torch.Tensor:
+    """One token of latent attention in the absorbed form. x: (B,1,D); pos:
+    (B,) int32 tokens so far; latent: the layer's ring (B,C,r + rope),
+    whose slot pos % C gets the token's row IN PLACE (with the rope of q, in
+    one ``ops.rope_append``). q_nope is taken into the latent space by
+    W_UK (``wkv_b``'s k_nope columns), the heads attend over the ring as
+    one shared key of r + rope and value of r (``ops.mla_decode``), and
+    W_UV (its v columns) and ``wo`` take the latent output back. Returns
+    (B,1,D)."""
+    B = x.shape[0]
+    H, r, nope, rope, vd = (cfg.n_attn_heads, cfg.kv_lora_rank,
+                            cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                            cfg.v_head_dim)
+    with tracing.span("mla.attend"):
+        q, c, k_pe = _mla_project(p, cfg, x, False)
+        q_pe = ops.rope_append(q[..., nope:], k_pe, c.view(B, 1, 1, r), pos,
+                               latent[..., r:], latent[..., :r], cfg.rope_theta,
+                               rope_inv_freq(cfg, rope, x.device))
+        wkv_b = p["wkv_b"].view(r, H, nope + vd)
+        q_lat = torch.bmm(q[:, 0, :, :nope].transpose(0, 1),
+                          wkv_b[:, :, :nope].permute(1, 2, 0))      # (H,B,r)
+        qf = torch.cat([q_lat.transpose(0, 1), q_pe[:, 0]], dim=-1)  # (B,H,r+rope)
+        o = ops.mla_decode(qf, latent, pos, mla_softmax_scale(cfg), r)  # (B,H,r)
+        o = torch.bmm(o.transpose(0, 1), wkv_b[:, :, nope:].transpose(0, 1))
+        return o.transpose(0, 1).reshape(B, 1, H * vd) @ p["wo"]

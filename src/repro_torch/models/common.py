@@ -1,11 +1,19 @@
-"""Parameter init and numerics shared by the model (``repro.models.common``)."""
+"""Parameter init and numerics shared by the model (``repro.models.common``).
+
+The port adds DeepSeek-V2's YaRN rope frequencies (``rope_inv_freq``) and
+its latent attention's softmax scale (``mla_softmax_scale``), which the
+reference lacks.
+"""
 from __future__ import annotations
 
+import functools
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs.base import ModelConfig, YarnScaling
 from repro_torch.kernels import ops
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
 
@@ -59,3 +67,69 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, *,
 def swiglu(x_gate: torch.Tensor, x_up: torch.Tensor) -> torch.Tensor:
     """silu(gate) * up in the input dtype."""
     return F.silu(x_gate) * x_up
+
+
+# ---------------------------------------------------------------------------
+# YaRN (DeepSeek-V2's modeling_deepseek.py: DeepseekV2YarnRotaryEmbedding)
+# ---------------------------------------------------------------------------
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _correction_dim(rotations: float, dim: int, base: float, max_pos: int) -> float:
+    return (dim * math.log(max_pos / (rotations * 2 * math.pi))) / (2 * math.log(base))
+
+
+def yarn_inv_freq_plain(dim: int, base: float, ys: YarnScaling) -> torch.Tensor:
+    """The dim/2 inverse frequencies, fp32 on the CPU, as the published
+    code computes them: theta's own (``freq_extra``) below the low
+    correction dim, theta's over ``factor`` (``freq_inter``) above the high
+    one, a linear ramp between (NTK-by-parts interpolation)."""
+    i = torch.arange(0, dim, 2, dtype=torch.float32)
+    extra = 1.0 / (base ** (i / dim))
+    inter = 1.0 / (ys.factor * base ** (i / dim))
+    low = max(math.floor(_correction_dim(ys.beta_fast, dim, base,
+                                         ys.original_max_position_embeddings)), 0)
+    high = min(math.ceil(_correction_dim(ys.beta_slow, dim, base,
+                                         ys.original_max_position_embeddings)),
+               dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32) - low)
+                       / (high - low), 0, 1)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_freq_on(dim: int, base: float, ys: YarnScaling,
+                 device: torch.device) -> torch.Tensor:
+    return yarn_inv_freq_plain(dim, base, ys).to(device)
+
+
+def rope_inv_freq(cfg: ModelConfig, dim: int,
+                  device: torch.device) -> Optional[torch.Tensor]:
+    """The rope kernel's table of inverse frequencies for ``cfg``'s yarn
+    scaling, made once for each device (None without scaling: the kernel
+    takes theta's). The published cos/sin scale, mscale over mscale_all_dim,
+    is 1 for DeepSeek-V2 (both 0.707); any other is refused."""
+    ys = cfg.rope_scaling
+    if ys is None:
+        return None
+    if yarn_mscale(ys.factor, ys.mscale) != yarn_mscale(ys.factor, ys.mscale_all_dim):
+        raise ValueError(f"{cfg.name}: yarn mscale {ys.mscale} != mscale_all_dim "
+                         f"{ys.mscale_all_dim} scales cos and sin, which the "
+                         "rope kernel does not")
+    return _inv_freq_on(dim, float(cfg.rope_theta), ys, torch.device(device))
+
+
+def mla_softmax_scale(cfg: ModelConfig) -> float:
+    """(qk_nope + qk_rope) ** -0.5, times yarn's mscale(mscale_all_dim)
+    squared, as the published attention sets ``softmax_scale``."""
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    ys = cfg.rope_scaling
+    if ys is not None and ys.mscale_all_dim:
+        m = yarn_mscale(ys.factor, ys.mscale_all_dim)
+        scale *= m * m
+    return scale

@@ -16,6 +16,15 @@ Where torch and JAX would otherwise differ:
   JAX, so bf16 routing picks the reference's experts;
 - dispatch and combine are cast to x's dtype before the products (the gate
   weights are rounded to bf16 in a bf16 model).
+
+What the port adds for DeepSeek-V2 (``MoEConfig`` fields the reference
+lacks; their defaults keep Mixtral's and llama4's layers as they were):
+experts and shared experts of ``d_expert`` width, not ``d_ff``; the
+"softmax_topk" scoring, a softmax over every expert's logit and the top-k of
+those weights, not renormalised; and a decode step (one token a row) that
+drops no (token, choice) at any batch x top-k: where the reference's
+dropless rule (group x k <= 64) does not reach, a decode group's capacity
+is its token count, since a token picks each expert at most once.
 """
 from __future__ import annotations
 
@@ -70,8 +79,10 @@ def init_moe(cfg: ModelConfig, generator: torch.Generator,
              device: torch.device) -> Dict[str, torch.Tensor]:
     """One MoE layer: the router (D, E), the experts ``we_gate``/``we_up``
     (E, D, F) and ``we_down`` (E, F, D), and with shared experts
-    ``ws_gate``/``ws_up`` (D, s*F) and ``ws_down`` (s*F, D)."""
-    d, f, e, dt = cfg.d_model, cfg.d_ff, cfg.moe.n_experts, cfg.torch_dtype
+    ``ws_gate``/``ws_up`` (D, s*F) and ``ws_down`` (s*F, D); F is the
+    expert width (``d_expert``, else ``d_ff``)."""
+    d, e, dt = cfg.d_model, cfg.moe.n_experts, cfg.torch_dtype
+    f = cfg.moe.expert_width(cfg.d_ff)
     p = {
         "router": init_param((d, e), generator, dt, device),
         "we_gate": _init_experts((e, d, f), generator, dt, device),
@@ -87,12 +98,14 @@ def init_moe(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
-def moe_capacity(cfg: ModelConfig, group_tokens: int) -> int:
+def moe_capacity(cfg: ModelConfig, group_tokens: int, decode: bool = False) -> int:
     mc = cfg.moe
     # dropless for small groups (decode steps): capacity covers the worst
     # case so no token is ever dropped at generation time
     if group_tokens * mc.top_k <= 64:
         return group_tokens * mc.top_k
+    if decode:     # the port's: a token takes each expert at most once
+        return group_tokens
     c = int(group_tokens * mc.top_k * CAPACITY_FACTOR / mc.n_experts)
     return max(c, mc.top_k)
 
@@ -104,16 +117,20 @@ def _top_k(logits: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.gather(logits, -1, idx), idx
 
 
-def _routing(p: Dict, cfg: ModelConfig, xg: torch.Tensor):
+def _routing(p: Dict, cfg: ModelConfig, xg: torch.Tensor, decode: bool = False):
     """dispatch/combine tensors (G,T,E,C) fp32 and the router logits
-    (G,T,E) fp32 from grouped tokens xg (G,T,D)."""
+    (G,T,E) fp32 from grouped tokens xg (G,T,D); ``decode``: a decode
+    step's group (``moe_capacity``)."""
     mc = cfg.moe
     G, T, _ = xg.shape
     E, K = mc.n_experts, mc.top_k
-    C = moe_capacity(cfg, T)
+    C = moe_capacity(cfg, T, decode)
     logits = (xg @ p["router"]).float()
-    gate_vals, idx = _top_k(logits, K)                       # (G,T,K)
-    gate_vals = torch.softmax(gate_vals, dim=-1)
+    if mc.scoring == "softmax_topk":
+        gate_vals, idx = _top_k(torch.softmax(logits, dim=-1), K)
+    else:
+        gate_vals, idx = _top_k(logits, K)                   # (G,T,K)
+        gate_vals = torch.softmax(gate_vals, dim=-1)
     onehot = F.one_hot(idx, E).float()                       # (G,T,K,E)
     # position of each (token, k) inside its expert buffer: a cumsum over
     # the k-major order, so every first choice outranks every second
@@ -149,13 +166,13 @@ def _experts(p: Dict, xe: torch.Tensor) -> torch.Tensor:
 def moe(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Top-k routed experts, capacity-based dispatch. x: (B,S,D). Tokens
     form groups of GROUP_TOKENS when their count divides by it, else one
-    group."""
+    group; one token a row (S 1) is a decode step."""
     B, S, D = x.shape
     tokens = B * S
     T = GROUP_TOKENS if tokens % GROUP_TOKENS == 0 else tokens
     G = tokens // T
     xg = x.reshape(G, T, D)
-    dispatch, combine, _ = _routing(p, cfg, xg)
+    dispatch, combine, _ = _routing(p, cfg, xg, decode=S == 1)
     dispatch = dispatch.to(x.dtype)
     combine = combine.to(x.dtype)
     xe = torch.einsum("gtec,gtd->gecd", dispatch, xg)        # (G,E,C,D)

@@ -15,7 +15,11 @@ bias or qk_norm) and ``norm3`` to every decoder layer, ``enc`` ({"layers":
 [{"attn", "mlp", "norm1", "norm2"}, ...], "final_norm"}) and the frame
 projection ``frame_proj`` (D, D); the vlm family adds ``patch_proj`` (D,
 D). A Python loop over ``layers`` takes the place of JAX's ``lax.scan``
-over (super-)layers.
+over (super-)layers. A latent-attention model (``cfg.is_mla``, the port's
+own: DeepSeek-V2) has the ``attn`` weights of ``attention.init_mla``, its
+leading ``moe.n_dense_layers`` layers dense and the rest MoE, and one ring
+``latent`` (L,B,C,r + rope) in place of ``k``/``v``: prefill writes each
+token's [normed latent | roped k_rope], a decode step the new token's.
 
     init_model(cfg, generator, device)          -> params
     forward(cfg, params, batch)                 -> final hidden states
@@ -74,7 +78,8 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
             lp["tm"] = rwkv.init_time_mix(cfg, generator, dev)
             lp["cm"] = rwkv.init_channel_mix(cfg, generator, dev)
         else:
-            lp["attn"] = attn_mod.init_attention(cfg, generator, dev)
+            lp["attn"] = (attn_mod.init_mla(cfg, generator, dev) if cfg.is_mla
+                          else attn_mod.init_attention(cfg, generator, dev))
             if cfg.family == "hybrid":
                 lp["ssm"] = mamba.init_mamba(cfg, generator, dev)
             if is_moe:
@@ -186,7 +191,13 @@ def _attn_layer(cfg: ModelConfig, lp: Dict, x: torch.Tensor,
     encdec adds the cross K/V ``cross_k``/``cross_v`` (B,S_enc,KV*hd))."""
     a_in = rms_norm(x, lp["norm1"], cfg.norm_eps, is_train=is_train)
     y = {}
-    if collect_cache:
+    if cfg.is_mla:
+        a_out = attn_mod.mla_attend(lp["attn"], cfg, a_in, is_train=is_train,
+                                    return_latent=collect_cache)
+        if collect_cache:
+            a_out, lat = a_out
+            y = {"latent": attn_mod.pack_ring(lat, cache_len)}
+    elif collect_cache:
         a_out, (kk, vv) = attn_mod.attend(lp["attn"], cfg, a_in,
                                           return_kv=True, is_train=is_train)
         y = {"k": attn_mod.pack_ring(kk, cache_len),
@@ -427,11 +438,15 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
             enc_pos = torch.full_like(pos, cache["cross_k"].shape[2] - 1)
         for l, lp in enumerate(params["layers"]):
             a_in = rms_norm(x, lp["norm1"], cfg.norm_eps)
-            scales = ((cache["k_scale"][l], cache["v_scale"][l])
-                      if cfg.kv_quant else ())
-            a_out = attn_mod.decode_attend(lp["attn"], cfg, a_in, pos,
-                                           cache["k"][l], cache["v"][l],
-                                           *scales)[0]
+            if cfg.is_mla:
+                a_out = attn_mod.mla_decode_attend(lp["attn"], cfg, a_in, pos,
+                                                   cache["latent"][l])
+            else:
+                scales = ((cache["k_scale"][l], cache["v_scale"][l])
+                          if cfg.kv_quant else ())
+                a_out = attn_mod.decode_attend(lp["attn"], cfg, a_in, pos,
+                                               cache["k"][l], cache["v"][l],
+                                               *scales)[0]
             if "ssm" in lp:
                 conv = cache["conv_state"][l] if "conv_state" in cache else None
                 m_out, s2, c2 = mamba.mamba_step(lp["ssm"], cfg, a_in,

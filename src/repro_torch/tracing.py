@@ -35,7 +35,12 @@ Spans taken in ``repro_torch``:
 - ``model.replay``: the replay of a captured decode step's CUDA graph,
   inside ``model.decode``;
 - ``engine.sync``: each blocking copy to the host;
-- ``moe.experts``: the expert products of one MoE layer call.
+- ``moe.experts``: the expert products of one MoE layer call;
+- ``mla.attend``: one latent-attention layer call (DeepSeek-V2), at a
+  prefill (``attention.mla_attend``: projections, rope, decompression,
+  flash, output projection) or a decode step
+  (``attention.mla_decode_attend``: projections, rope and ring write,
+  absorption, the latent decode kernel, output projection).
 """
 from __future__ import annotations
 

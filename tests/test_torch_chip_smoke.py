@@ -56,7 +56,8 @@ def test_counts_successful_calls_by_kernel_name(stand_in):
     assert called == ["repro_rope", "repro_rope", "repro_rmsnorm",
                       "repro_decode_attention_int8", "repro_wkv"]
     assert counts == {"rmsnorm": 1, "flash_attention": 0, "decode_attention": 0,
-                      "decode_attention_int8": 1, "wkv": 0, "rope": 2}
+                      "decode_attention_int8": 1, "wkv": 0, "rope": 2,
+                      "mla_decode": 0}
 
 
 def test_counts_the_wrappers_card_route_with_rope_append_under_rope(
@@ -81,7 +82,8 @@ def test_counts_the_wrappers_card_route_with_rope_append_under_rope(
             ops.rmsnorm(x, g)
     assert called == ["repro_rmsnorm", "repro_rope", "repro_rope", "repro_rmsnorm"]
     assert counts == {"rmsnorm": 1, "flash_attention": 0, "decode_attention": 0,
-                      "decode_attention_int8": 0, "wkv": 0, "rope": 2}
+                      "decode_attention_int8": 0, "wkv": 0, "rope": 2,
+                      "mla_decode": 0}
 
 
 def test_puts_the_entry_points_back(stand_in):
